@@ -53,10 +53,13 @@ setup(
     version="0.1.0",
     description="TPU-native mixed-precision, fused-kernel, and parallelism "
                 "utilities (NVIDIA Apex capability surface on JAX/XLA/Pallas)",
-    packages=find_packages(include=["apex_tpu", "apex_tpu.*"]),
+    packages=find_packages(include=["apex_tpu", "apex_tpu.*",
+                                    "apex_tpu_torch", "apex_tpu_torch.*"]),
     # per-device-kind tuned block files (kernels/tuned/<kind>.json),
-    # auto-loaded by kernels.vmem at first dispatch
-    package_data={"apex_tpu.kernels": ["tuned/*.json"]},
+    # auto-loaded by kernels.vmem at first dispatch; the PyTorch port's
+    # CUDA sources, compiled with nvcc at first use on the GPU
+    package_data={"apex_tpu.kernels": ["tuned/*.json"],
+                  "apex_tpu_torch": ["csrc/*.cu"]},
     ext_modules=ext_modules,
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
