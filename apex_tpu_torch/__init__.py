@@ -8,7 +8,10 @@ each port module sits at the same place as its reference:
   its plain PyTorch version;
 - ``normalization``, ``amp``, ``models`` and ``serving`` — the paged
   serving path of ``TransformerLM`` (chunked scheduler, paged engine,
-  page pool).
+  page pool);
+- ``amp`` (O0/O2 policies, the dynamic loss scaler, ``make_train_step``),
+  ``optimizers`` (FusedAdam) and ``examples.lm.main_amp`` — the training
+  path of ``TransformerLM`` with the fused LM-head loss.
 
 The port imports ``torch`` and never ``jax``, ``flax``, ``optax`` or
 ``apex_tpu``. Entry points run on the GPU unless the caller passes

@@ -20,8 +20,9 @@ import collections
 import torch
 
 #: launches per kernel since the last :func:`reset_launches`, keyed by
-#: kernel name (``layer_norm``, ``paged_decode_attention``,
-#: ``paged_prefill_attention``)
+#: kernel name (``layer_norm``, ``layer_norm_bwd``,
+#: ``paged_decode_attention``, ``paged_prefill_attention``, ``flash_fwd``,
+#: ``flash_bwd_dkdv``, ``flash_bwd_dq``)
 launches: collections.Counter = collections.Counter()
 
 
@@ -65,10 +66,17 @@ def stream_handle() -> int:
 
 
 from .layer_norm import (  # noqa: E402,F401
-    layer_norm, layer_norm_reference, rms_norm, rms_norm_reference)
+    layer_norm, layer_norm_bwd_reference, layer_norm_reference, rms_norm,
+    rms_norm_reference)
 from .decode_attention import (  # noqa: E402,F401
     decode_attention_reference, gather_pages, paged_decode_attention,
     paged_decode_attention_reference)
 from .prefill_attention import (  # noqa: E402,F401
     paged_prefill_attention, paged_prefill_attention_reference,
     prefill_attention_reference)
+from .flash_attention import (  # noqa: E402,F401
+    flash_attention, flash_bwd_reference, flash_fwd_reference,
+    mha_reference)
+from .xentropy import xent_reference  # noqa: E402,F401
+from .lm_head_loss import (  # noqa: E402,F401
+    lm_head_xent_reference, lm_head_xentropy)

@@ -1,5 +1,6 @@
-"""apex_tpu_torch.models — the serving modes of TransformerLM."""
+"""apex_tpu_torch.models — TransformerLM: its training forward and its
+paged serving modes."""
 
-from .convert import params_from_jax  # noqa: F401
+from .convert import params_from_jax, params_to_jax  # noqa: F401
 from .transformer_lm import (  # noqa: F401
     SelfAttention, TransformerBlock, TransformerLM, create_lm)

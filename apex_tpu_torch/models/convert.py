@@ -1,9 +1,13 @@
-"""Carry ``apex_tpu`` TransformerLM weights into the port's module.
+"""Carry TransformerLM weights between ``apex_tpu`` and the port.
 
 :func:`params_from_jax` takes the JAX parameter tree as nested dicts of
 numpy arrays (the caller converts with ``jax.device_get`` /
 ``np.asarray``; nothing here imports JAX) and returns a ``state_dict``
-for :class:`~apex_tpu_torch.models.transformer_lm.TransformerLM`:
+for :class:`~apex_tpu_torch.models.transformer_lm.TransformerLM`;
+:func:`params_to_jax` is its inverse, so both sides can start from the
+same fp32 weights whichever initialised them, and a trained port model
+(or its gradients, keyed like its parameters) can be compared leaf by
+leaf with the JAX tree:
 
 - a flax ``Dense.kernel`` ``[in, out]`` becomes ``Linear.weight``
   ``[out, in]`` (the ``qkv`` column order ``[3][heads][head_dim]`` is
@@ -20,7 +24,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "params_to_jax"]
 
 _DENSE = {"qkv": "attn.qkv", "proj": "attn.proj", "mlp_in": "mlp_in",
           "mlp_out": "mlp_out"}
@@ -61,3 +65,42 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     for k, v in _ln(params["ln_f"]).items():
         sd[f"ln_f.{k}"] = v
     return sd
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict:
+    """The JAX ``TransformerLM`` parameter tree (nested dicts of fp32
+    numpy arrays, no ``{"params": ...}`` wrapper) for a port
+    ``state_dict`` — or any mapping keyed like one, such as parameter
+    gradients. Raises when a key is left unmapped."""
+    left = set(state)
+    tree: Dict = {}
+
+    def take(key):
+        left.discard(key)
+        return _np(state[key])
+
+    tree["wte"] = {"embedding": take("wte.weight")}
+    tree["wpe"] = take("wpe")
+    blocks = sorted({int(m.group(1)) for k in state
+                     if (m := re.match(r"blocks\.(\d+)\.", k))})
+    for i in blocks:
+        blk: Dict = {"attn": {}}
+        for norm in _NORMS:
+            blk[norm] = {"scale": take(f"blocks.{i}.{norm}.weight"),
+                         "bias": take(f"blocks.{i}.{norm}.bias")}
+        for src, dst in _DENSE.items():
+            dense = {"kernel": take(f"blocks.{i}.{dst}.weight").T.copy(),
+                     "bias": take(f"blocks.{i}.{dst}.bias")}
+            if dst.startswith("attn."):
+                blk["attn"][src] = dense
+            else:
+                blk[src] = dense
+        tree[f"block_{i}"] = blk
+    tree["ln_f"] = {"scale": take("ln_f.weight"), "bias": take("ln_f.bias")}
+    if left:
+        raise ValueError(f"params_to_jax: unmapped keys {sorted(left)}")
+    return tree

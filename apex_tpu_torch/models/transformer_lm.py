@@ -27,9 +27,12 @@ Positions are clipped twice, as in the reference: ``clip(pos, 0, L - S)``
 for the cache write/attend window (``L = max_pages * page_len``) and
 ``clip(pos + s, 0, max_seq_len - 1)`` for the position embedding.
 
-The no-cache forward and ``return_kv`` (monolithic prefill) run
-``flash_attention``, which comes with the training slice; they raise
-``NotImplementedError`` here.
+The **no-cache forward** (``cache=None``) is the training path: causal
+:func:`~apex_tpu_torch.kernels.flash_attention.flash_attention` over the
+whole sequence at positions ``[0, S)``, differentiable end to end
+(LayerNorm and attention through their CUDA kernels' backward).
+``return_kv`` (monolithic prefill) belongs to the contiguous engine, a
+later slice, and raises; so do ``dropout > 0`` and ``remat``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch.kernels.decode_attention import paged_decode_attention
+from apex_tpu_torch.kernels.flash_attention import flash_attention
 from apex_tpu_torch.kernels.prefill_attention import (
     paged_prefill_attention)
 from apex_tpu_torch.normalization import FusedLayerNorm
@@ -49,15 +53,16 @@ from apex_tpu_torch.normalization import FusedLayerNorm
 __all__ = ["SelfAttention", "TransformerBlock", "TransformerLM",
            "create_lm", "_LM_SIZES"]
 
-_NO_FLASH = ("the no-cache forward and return_kv (monolithic prefill) run "
-             "flash_attention, which comes with the training slice of the "
-             "port; serve through the paged cache modes")
+_NO_RETURN_KV = ("return_kv (monolithic prefill) belongs to the contiguous "
+                 "engine, a later slice of the port (ROADMAP Queue 3); "
+                 "serve through the paged cache modes")
 
 
 class SelfAttention(nn.Module):
-    """Causal multi-head attention over the paged pool (decode and chunk
-    prefill; see the module docstring). ``qkv`` output columns are
-    ordered ``[3][heads][head_dim]``, as the JAX Dense kernel's."""
+    """Causal multi-head attention: over the whole sequence with no
+    cache (training), or over the paged pool (decode and chunk prefill;
+    see the module docstring). ``qkv`` output columns are ordered
+    ``[3][heads][head_dim]``, as the JAX Dense kernel's."""
 
     def __init__(self, hidden: int, num_heads: int):
         super().__init__()
@@ -69,12 +74,15 @@ class SelfAttention(nn.Module):
         self.qkv = nn.Linear(hidden, 3 * hidden)
         self.proj = nn.Linear(hidden, hidden)
 
-    def forward(self, x, cache, positions):
+    def forward(self, x, cache=None, positions=None):
         B, S, H = x.shape
         heads = self.num_heads
         d = H // heads
         qkv = self.qkv(x).reshape(B, S, 3, heads, d).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]                  # [B, h, S, d]
+        if cache is None:
+            ctx = flash_attention(q, k, v, causal=True)
+            return self.proj(ctx.transpose(1, 2).reshape(B, S, H))
         k_pool, v_pool, page_table = cache
         page_len = k_pool.shape[2]
         L = page_table.shape[1] * page_len
@@ -122,7 +130,7 @@ class TransformerBlock(nn.Module):
         self.mlp_in = nn.Linear(hidden, mlp_ratio * hidden)
         self.mlp_out = nn.Linear(mlp_ratio * hidden, hidden)
 
-    def forward(self, x, cache, positions):
+    def forward(self, x, cache=None, positions=None):
         x = x + self.attn(self.ln_attn(x), cache, positions)
         h = self.mlp_in(self.ln_mlp(x))
         h = F.gelu(h.float(), approximate="tanh").to(self.mlp_out.weight.dtype)
@@ -133,18 +141,29 @@ class TransformerLM(nn.Module):
     """Causal LM: tied-embedding GPT with pre-LN blocks and a final
     FusedLayerNorm.
 
+    ``forward(tokens [B, S]) -> logits [B, S, vocab] fp32`` is the
+    training forward (no cache, token ``s`` at position ``s``).
     ``forward(tokens [B, S], cache=(k_pools, v_pools, page_table),
     positions [B] int32) -> (logits [B, S, vocab] fp32, (k_pools,
-    v_pools))`` — token ``s`` of row ``b`` sits at ``positions[b] + s``.
-    ``features_only=True`` returns the pre-head hidden states ``[B, S,
-    hidden]`` instead (the engine applies :meth:`head` to the one row it
-    samples). Compute runs in the parameters' dtype; the head is fp32
-    (:meth:`head`)."""
+    v_pools))`` serves from the paged pool — token ``s`` of row ``b``
+    sits at ``positions[b] + s``. ``features_only=True`` returns the
+    pre-head hidden states ``[B, S, hidden]`` instead of logits (the
+    fused LM-head loss and the engine apply the head themselves).
+    Compute runs in the parameters' dtype (the embedding's under amp O2,
+    whose fp32 LayerNorm parameters take bf16 activations); the head is
+    fp32 (:meth:`head`). ``dropout`` and ``remat`` are not ported yet and
+    raise when set."""
 
     def __init__(self, vocab_size: int, hidden: int = 512,
                  num_layers: int = 6, num_heads: int = 8,
-                 max_seq_len: int = 1024, mlp_ratio: int = 4):
+                 max_seq_len: int = 1024, mlp_ratio: int = 4,
+                 dropout: float = 0.0, remat: bool = False):
         super().__init__()
+        if dropout > 0.0 or remat:
+            raise NotImplementedError(
+                "TransformerLM dropout > 0 and remat (activation "
+                "checkpointing) are not ported yet (ROADMAP Queue 3): the "
+                "flash kernels take no dropout mask")
         self.vocab_size = vocab_size
         self.hidden = hidden
         self.num_layers = num_layers
@@ -196,8 +215,10 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens, *, cache=None, positions=None,
                 features_only: bool = False, return_kv: bool = False):
-        if cache is None or return_kv:
-            raise NotImplementedError(_NO_FLASH)
+        if return_kv:
+            raise NotImplementedError(_NO_RETURN_KV)
+        if cache is None:
+            return self._forward_full(tokens, features_only)
         if len(cache) != 3:
             raise NotImplementedError(
                 "the contiguous (k, v) cache belongs to the paged=False "
@@ -217,6 +238,20 @@ class TransformerLM(nn.Module):
         if features_only:
             return x
         return self.head(x), (k_pools, v_pools)
+
+
+    def _forward_full(self, tokens, features_only: bool):
+        S = tokens.shape[1]
+        if S > self.max_seq_len:
+            raise ValueError(f"sequence {S} > max_seq_len "
+                             f"{self.max_seq_len}")
+        x = (self.wte(tokens) + self.wpe[:S][None]).to(self.wte.weight.dtype)
+        for block in self.blocks:
+            x = block(x)
+        x = self.ln_f(x)
+        if features_only:
+            return x
+        return self.head(x)
 
 
 _LM_SIZES = {

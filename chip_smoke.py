@@ -33,7 +33,32 @@ the run with a non-zero exit:
 5. **parity** — the same weights at O0 fp32 on the card and on the CPU
    (plain path), 2 prompts of 300 tokens (two chunks, one partial), 16
    new tokens each: identical greedy streams, per-step max |dlogit| <=
-   1e-3.
+   1e-3;
+6. **train kernels** — at the training path's shapes (8192 rows of 768;
+   q, k, v [8 x 12, 1024, 64]): LayerNorm forward with bf16 x and fp32
+   gamma/beta, LayerNorm backward (fp32, bf16, bf16 x with fp32 gamma,
+   and memory_efficient), flash-attention forward, dK/dV and dQ in bf16
+   and fp32, each against its plain version (fp32 atol 2e-5; bf16 2e-3 +
+   2^-7 |plain|; dgamma/dbeta, sums over 8192 rows, 1e-5 of the column's
+   sum of |terms|), each limit shown to fail a wrong kernel (a gamma
+   element changed, a causal mask shifted by one), and timed beside its
+   bound, its plain version and the PyTorch call (the backward of
+   ``F.layer_norm``, ``F.scaled_dot_product_attention(is_causal=True)``
+   and its backward, the latter timed eagerly with the forward outside);
+7. **train** — GPT-2 width and depth (``create_lm("gpt2", vocab 50257,
+   max_seq_len 1024)``) at amp O2 with the dynamic loss scaler, FusedAdam
+   (AdamW, lr 3e-4, weight decay 0.01) and the fused LM-head loss (chunk
+   8192): 12 steps of B 8 x S 1024 on one batch drawn with numpy seed 0.
+   Every loss finite, the last 0.5 nats below the first, and exactly 25
+   LayerNorm forwards and backwards and 12 flash forwards, dK/dV and dQ
+   launches per step; then one step under ``torch.profiler`` (device
+   time by kernel group and the idle share, reported, not gated) and
+   one overflow step (found_inf, the scale halved, parameters, masters
+   and Adam state bitwise unchanged);
+8. **train parity** — the same weights at O0 fp32, card vs CPU, full
+   width and depth, B 2 x S 256, 3 steps: losses within 1e-4 relative,
+   step-1 gradients within the limit of ``_grad_limit``, parameters
+   within Adam's sign bound.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -43,6 +68,7 @@ outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -67,7 +93,19 @@ TOL = {"layer_norm": {"torch.float32": (2e-5, 0.0),
        "attention": {"torch.float32": (2e-5, 0.0),
                      "torch.bfloat16": (2e-3, 2.0 ** -7)}}
 
+# the training path's checks (train kernels phase): fp32 atol 2e-5; bf16
+# 2e-3 + one bf16 ulp of the value, as the attention checks above
+TRAIN_TOL = {"torch.float32": (2e-5, 0.0),
+             "torch.bfloat16": (2e-3, 2.0 ** -7)}
+LN_BWD_OPS_PER_ELEM = 13
+SUM_RTOL = 1e-5         # dgamma/dbeta: of the column's sum of |terms|
+REACH = 8               # a wrong input must fail every row it forms 1/8 of
+
 GPT2 = dict(size="gpt2", vocab_size=50257, max_seq_len=1024)
+TRAIN = dict(batch=8, seq=1024, steps=12, lr=3e-4, weight_decay=0.01,
+             chunk=8192, min_drop=0.5)
+TRAIN_PARITY = dict(batch=2, seq=256, steps=3)
+TRAIN_ROWS, HIDDEN, HEADS, HEAD_DIM = 8192, 768, 12, 64
 SERVE = dict(slots=8, max_len=1024, prefill_len=512, chunk_len=256)
 LN_PER_CALL = 25                          # 2 per block x 12 + ln_f
 ATTN_PER_CALL = 12                        # one per block
@@ -135,6 +173,26 @@ class Timer:
             e = torch.cuda.Event(enable_timing=True)
             s.record()
             graph.replay()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+    def eager(self, fn) -> float:
+        """Median device time of ``fn`` launched eagerly between CUDA
+        events, L2 flushed first: for a call a graph cannot capture (an
+        autograd backward, whose kernels run on the forward's stream).
+        Host-side launch gaps count, so it reads high for short calls."""
+        torch = self.torch
+        for _ in range(3):
+            fn()
+        pairs = []
+        for _ in range(self.reps):
+            self.flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
             e.record()
             pairs.append((s, e))
         torch.cuda.synchronize()
@@ -324,9 +382,9 @@ def _prefill_case(torch, timer, dtype, offset, rng):
 
 
 def _log_times(label, r):
+    lib = "n/a" if r["library"] is None else f"{r['library']:.4f} ms"
     log(f"  {label}: kernel {r['ms']:.4f} ms, plain {r['plain']:.4f} ms,"
-        f" library {r['library']:.4f} ms, bound {r['bound']:.4f} ms "
-        f"({r['by']})")
+        f" library {lib}, bound {r['bound']:.4f} ms ({r['by']})")
 
 
 def phase_kernels(torch):
@@ -345,6 +403,242 @@ def phase_kernels(torch):
             r = _prefill_case(torch, timer, dtype, offset, rng)
             _log_times(f"paged_prefill offset={offset} {dtype}", r)
             results[("paged_prefill_attention", offset, str(dtype))] = r
+    return results
+
+
+# ------------------------------------------------------ train kernels
+def _check_sums(name, got, want, abs_terms, dtype):
+    """dgamma / dbeta: column sums over all rows. Two fp32 summation
+    orders of n terms differ by about sqrt(n) * 2^-24 of the sum of
+    |terms| (5.4e-6 at n = 8192); held at 1e-5 of it, plus one bf16 ulp
+    of the value when the result is bf16."""
+    allow = SUM_RTOL * abs_terms
+    if dtype == "torch.bfloat16":
+        allow = allow + 2.0 ** -7 * want.float().abs()
+    diff = (got.float() - want.float()).abs()
+    excess = (diff / allow).max().item()
+    log(f"  {name}: max|kernel - plain| = {diff.max().item():.3g} "
+        f"({excess:.3g} of the allowance)")
+    if not excess <= 1.0:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version: {excess:.3g}x the allowance")
+
+
+def _wrong_rows_check(name, wrong, want, reached, tol, per_row):
+    """The tolerance must see a wrong kernel: the plain version fed a
+    wrong input (``wrong``) must fail the check in EVERY row ``reached``
+    marks. ``per_row(excess)`` -> each row's worst excess."""
+    worst = per_row(_excess(wrong, want, tol))[reached].min().item()
+    log(f"  {name}: least row excess {worst:.3g} over "
+        f"{int(reached.sum())} rows (> 1 needed)")
+    if not worst > 1.0:
+        raise AssertionError(f"{name}: the tolerance {tol} would pass a "
+                             f"kernel that computes {name}")
+
+
+def _ln_train_case(torch, timer, rng, xdt, pdt, mem_eff, forward):
+    """LayerNorm at the training shape: the backward (and, for the O2
+    dtype pair, the forward) against the plain versions; times."""
+    from apex_tpu_torch.kernels.layer_norm import (
+        _ln_bwd_kernel, _ln_kernel, _ln_plain, layer_norm_bwd_reference)
+
+    n, h = TRAIN_ROWS, HIDDEN
+    x = _uniform(torch, rng, (n, h), xdt)
+    dy = _uniform(torch, rng, (n, h), xdt)
+    w = _uniform(torch, rng, (h,), pdt, 0.5, 1.5)
+    b = _uniform(torch, rng, (h,), pdt, -0.1, 0.1)
+    col = h // 3
+    w_bad = w.clone()
+    w_bad[col] += 1.0                   # one gamma element changed
+    tol = TRAIN_TOL[str(xdt)]
+    tag = f"{xdt} x, {pdt} gamma" + (", memory_efficient" if mem_eff
+                                     else "")
+    # PyTorch's LayerNorm takes gamma in x's dtype only (on CUDA): with
+    # bf16 x and fp32 gamma there is no one library call to time
+    same = xdt == pdt
+    out = {}
+    y_ref, mean, rstd = _ln_plain(x, w, b, 1e-5, False)
+    if forward:
+        y = _ln_kernel(x, w, b, 1e-5, False)[0]
+        torch.cuda.synchronize()
+        label = f"layer_norm fwd rows={n} {tag}"
+        err = _check(label, y, y_ref, tol)
+        xhat = (x.float() - mean[:, None]) * rstd[:, None]
+        _wrong_rows_check(label + " (gamma changed)",
+                          _ln_plain(x, w_bad, b, 1e-5, False)[0], y_ref,
+                          xhat[:, col].abs() >= 1.0 / 8, tol,
+                          lambda ex: ex.amax(-1))
+        isz, psz = x.element_size(), w.element_size()
+        bound, by = _bound(2 * n * h * isz + 2 * h * psz + 2 * n * 4,
+                           LN_OPS_PER_ELEM * n * h, xdt)
+        out["fwd"] = dict(
+            err=err, bound=bound, by=by,
+            ms=timer(lambda: _ln_kernel(x, w, b, 1e-5, False)),
+            plain=timer(lambda: _ln_plain(x, w, b, 1e-5, False)),
+            library=timer(lambda: torch.ops.aten.native_layer_norm(
+                x, [h], w, b, 1e-5)) if same else None)
+    src = y_ref if mem_eff else x
+    args = (dy, src, w, b, mean, rstd, False, mem_eff)
+    dx, dg, db = _ln_bwd_kernel(*args)
+    dx2, dg2, db2 = _ln_bwd_kernel(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(dx, dx2) and torch.equal(dg, dg2)
+            and torch.equal(db, db2)):
+        raise AssertionError("layer_norm backward: two runs on the same "
+                             "inputs differ (the reduction must be "
+                             "deterministic)")
+    want = layer_norm_bwd_reference(*args)
+    label = f"layer_norm bwd rows={n} {tag}"
+    err = _check(label + " dx", dx, want[0], tol)
+    xhat = (x.float() - mean[:, None]) * rstd[:, None]
+    dy32 = dy.float()
+    _check_sums(label + " dgamma", dg, want[1],
+                (dy32 * xhat).abs().sum(0), str(pdt))
+    _check_sums(label + " dbeta", db, want[2], dy32.abs().sum(0), str(pdt))
+    _wrong_rows_check(label + " dx (gamma changed)",
+                      layer_norm_bwd_reference(dy, src, w_bad, b, mean,
+                                               rstd, False, mem_eff)[0],
+                      want[0], dy32[:, col].abs() >= 1.0 / 8, tol,
+                      lambda ex: ex.amax(-1))
+    isz, psz = x.element_size(), w.element_size()
+    bytes_moved = (3 * n * h * isz + (2 if mem_eff else 1) * h * psz
+                   + 2 * n * 4 + 2 * h * psz)
+    bound, by = _bound(bytes_moved, LN_BWD_OPS_PER_ELEM * n * h, xdt)
+    library = None
+    if same:
+        # the library backward reads its own forward's saved statistics
+        _, m2, r2 = torch.ops.aten.native_layer_norm(x, [h], w, b, 1e-5)
+        library = timer(lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [h], m2, r2, w, b, [True, True, True]))
+    out["bwd"] = dict(
+        err=err, bound=bound, by=by, ms=timer(lambda: _ln_bwd_kernel(*args)),
+        plain=timer(lambda: layer_norm_bwd_reference(*args)),
+        library=library)
+    return tag, out
+
+
+def _shifted_attention(torch, q3, k3, v3, do3, scale):
+    """The plain forward and backward with the causal mask shifted by one
+    (query row i also attends position i + 1): what a kernel off by one
+    position on the diagonal would compute. Returns ``(o, dq, dk, dv)``."""
+    from apex_tpu_torch.kernels.flash_attention import _NEG_INF
+
+    q, k, v, do = q3.float(), k3.float(), v3.float(), do3.float()
+    s = torch.einsum("bqd,bkd->bqk", q, k) * scale
+    keep = torch.ones(s.shape[-2:], dtype=torch.bool,
+                      device=s.device).tril(1)
+    p = torch.softmax(torch.where(keep, s, torch.full_like(s, _NEG_INF)),
+                      -1)
+    o = torch.einsum("bqk,bkd->bqd", p, v)
+    dp = torch.einsum("bqd,bkd->bqk", do, v)
+    ds = p * (dp - (do * o).sum(-1)[..., None]) * scale
+    return (o, torch.einsum("bqk,bkd->bqd", ds, k),
+            torch.einsum("bqk,bqd->bkd", ds, q),
+            torch.einsum("bqk,bqd->bkd", p, do))
+
+
+def _flash_train_case(torch, timer, rng, dtype):
+    """Flash forward, dK/dV and dQ at the training shape, against the
+    plain versions, with a shifted-mask wrong kernel; times."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.kernels.flash_attention import (
+        flash_bwd_dkdv_kernel, flash_bwd_dq_kernel, flash_bwd_reference,
+        flash_fwd_kernel, flash_fwd_reference)
+
+    B, S, d = TRAIN["batch"], TRAIN["seq"], HEAD_DIM
+    bh = B * HEADS
+    scale = d ** -0.5
+    q, k, v, do = (_uniform(torch, rng, (bh, S, d), dtype)
+                   for _ in range(4))
+    tol = TRAIN_TOL[str(dtype)]
+    o, lse = flash_fwd_kernel(q, k, v, scale, True)
+    o_ref, lse_ref = flash_fwd_reference(q, k, v, scale, True)
+    delta = (do.float() * o.float()).sum(-1)
+    bargs = (q, k, v, do, lse, delta, scale, True)
+    dk, dv = flash_bwd_dkdv_kernel(*bargs)
+    dq = flash_bwd_dq_kernel(*bargs)
+    torch.cuda.synchronize()
+    dq_ref, dk_ref, dv_ref = flash_bwd_reference(q, k, v, do, lse_ref,
+                                                 delta, scale, True)
+    o_ref = o_ref.to(dtype)
+    label = f"flash bh={bh} S={S} d={d} causal {dtype}"
+    errs = {"fwd": max(_check(label + " o", o, o_ref, tol),
+                       _check(label + " lse", lse, lse_ref,
+                              TRAIN_TOL["torch.float32"]))}
+    errs["dkdv"] = max(_check(label + " dk", dk, dk_ref.to(dtype), tol),
+                       _check(label + " dv", dv, dv_ref.to(dtype), tol))
+    errs["dq"] = _check(label + " dq", dq, dq_ref.to(dtype), tol)
+    # rows the shift reaches: query row i gains position i + 1, one of
+    # its i + 2 (o, dq); key row j gains query row j - 1, one of the
+    # positions row j - 1 attends (dk, dv); reached where that is at
+    # least 1/REACH of them. Among those, the rows the shift moves by
+    # more than twice the tolerance's absolute floor must all fail: a
+    # smaller move is below what the limit resolves by design.
+    pos = torch.arange(S, device="cuda")
+    near = {"q": (pos + 2 <= REACH)[None].expand(bh, S),
+            "k": ((pos >= 1) & (pos + 1 <= REACH))[None].expand(bh, S)}
+    wrong = _shifted_attention(torch, q, k, v, do, scale)
+    for name, side, w, want in zip(("o", "dq", "dk", "dv"), "qqkk", wrong,
+                                   (o_ref, dq_ref, dk_ref, dv_ref)):
+        w, want = w.to(dtype), want.to(dtype)
+        moved = (w.float() - want.float()).abs().amax(-1) > 2 * tol[0]
+        _wrong_rows_check(
+            f"{label} {name} (mask shifted; {int(near[side].sum())} rows "
+            f"reached)", w, want, near[side] & moved, tol,
+            lambda ex: ex.amax(-1))
+    isz = q.element_size()
+    pairs = bh * S * (S + 1) // 2                 # attended (i, j), causal
+    elems = bh * S * d
+    bounds = {
+        "fwd": _bound(4 * elems * isz + bh * S * 4, 4 * d * pairs, dtype),
+        "dkdv": _bound(6 * elems * isz + 2 * bh * S * 4, 8 * d * pairs,
+                       dtype),
+        "dq": _bound(5 * elems * isz + 2 * bh * S * 4, 6 * d * pairs,
+                     dtype)}
+    q4, k4, v4 = (t.view(B, HEADS, S, d).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.view(B, HEADS, S, d)
+    lib_bwd = timer.eager(lambda: torch.autograd.grad(
+        lib_out, (q4, k4, v4), do4, retain_graph=True))
+    plain_bwd = timer(lambda: flash_bwd_reference(q, k, v, do, lse_ref,
+                                                  delta, scale, True))
+    with torch.no_grad():
+        times = {
+            "fwd": dict(
+                ms=timer(lambda: flash_fwd_kernel(q, k, v, scale, True)),
+                plain=timer(lambda: flash_fwd_reference(q, k, v, scale,
+                                                        True)),
+                library=timer(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True))),
+            "dkdv": dict(ms=timer(lambda: flash_bwd_dkdv_kernel(*bargs)),
+                         plain=plain_bwd, library=lib_bwd),
+            "dq": dict(ms=timer(lambda: flash_bwd_dq_kernel(*bargs)),
+                       plain=plain_bwd, library=lib_bwd)}
+    return {part: dict(err=errs[part], bound=bounds[part][0],
+                       by=bounds[part][1], **times[part])
+            for part in ("fwd", "dkdv", "dq")}
+
+
+def phase_train_kernels(torch):
+    """Every kernel of the training path at its shapes, bf16 and fp32."""
+    timer = Timer(torch)
+    rng = np.random.default_rng(1)
+    results = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    for xdt, pdt, mem_eff in ((bf16, f32, False), (bf16, f32, True),
+                              (bf16, bf16, False), (f32, f32, False)):
+        forward = (xdt, pdt, mem_eff) == (bf16, f32, False)
+        tag, r = _ln_train_case(torch, timer, rng, xdt, pdt, mem_eff,
+                                forward)
+        for part, rr in r.items():
+            _log_times(f"layer_norm {part} {tag}", rr)
+            results[(f"layer_norm_{part}", tag)] = rr
+    for dtype in (bf16, f32):
+        r = _flash_train_case(torch, timer, rng, dtype)
+        for part, rr in r.items():
+            _log_times(f"flash {part} {dtype}", rr)
+            results[(f"flash_{part}", str(dtype))] = rr
     return results
 
 
@@ -458,7 +752,260 @@ def phase_parity(torch, model, engine_kw, prompt_len=300, new_tokens=16):
     return max(dl)
 
 
-def _kernel_line(results, counts):
+# ---------------------------------------------------------------- train
+TRAIN_KERNELS = ("layer_norm", "layer_norm_bwd", "flash_fwd",
+                 "flash_bwd_dkdv", "flash_bwd_dq")
+PER_STEP = {"layer_norm": LN_PER_CALL, "layer_norm_bwd": LN_PER_CALL,
+            "flash_fwd": ATTN_PER_CALL, "flash_bwd_dkdv": ATTN_PER_CALL,
+            "flash_bwd_dq": ATTN_PER_CALL, "paged_decode_attention": 0,
+            "paged_prefill_attention": 0}
+
+
+def _train_tokens(torch, vocab, batch, seq, seed):
+    """One [batch, seq + 1] batch from the recipe's Zipf-ish unigram
+    (token rank r drawn with weight 1/(r + 10)), numpy seed ``seed``."""
+    w = 1.0 / (np.arange(vocab) + 10.0)
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.choice(vocab, size=(batch, seq + 1),
+                                       p=w / w.sum()).astype(np.int64))
+
+
+def _train_setup(torch, model, device, opt_level):
+    """The recipe's training step (examples/lm/main_amp.py) for a copy of
+    ``model`` on ``device``: FusedAdam (AdamW) and the fused-head loss,
+    whose value a returned ``boost`` dict can multiply."""
+    import copy
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples.lm.main_amp import fused_head_loss_fn
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    policy = amp.resolve_policy(opt_level, verbose=False)
+    model = copy.deepcopy(model).to(device)
+    opt = FusedAdam(model.parameters(), lr=TRAIN["lr"],
+                    weight_decay=TRAIN["weight_decay"], adam_w_mode=True)
+    head = fused_head_loss_fn(0.0, policy.compute_dtype)
+    boost = {"factor": 1.0}
+
+    def loss_fn(m, tokens):
+        return head(m, tokens) * boost["factor"]
+
+    init_fn, step_fn = amp.make_train_step(loss_fn, opt, policy)
+    return init_fn(model), step_fn, boost, head
+
+
+def phase_train(torch, model):
+    """GPT-2 width and depth at O2 through make_train_step: 12 steps on
+    one fixed batch. Returns (setup, metrics, launch counts)."""
+    from apex_tpu_torch import kernels
+
+    state, step_fn, boost, _ = _train_setup(torch, model, "cuda", "O2")
+    B, S, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    tokens = _train_tokens(torch, model.vocab_size, B, S, 0).cuda()
+    losses, times, found, per_step = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    for _ in range(steps):
+        before = dict(kernels.launches)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        found.append(bool(m["found_inf"]))
+        per_step.append({k: kernels.launches[k] - before.get(k, 0)
+                         for k in PER_STEP})
+    counts = {k: int(kernels.launches[k]) for k in PER_STEP}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times)
+    metrics = dict(steps=steps, tokens_per_step=B * S,
+                   step_ms_median=1e3 * step_s,
+                   step_ms=[1e3 * t for t in times],
+                   tokens_per_s=B * S / step_s,
+                   max_memory_allocated_gib=peak / 2 ** 30,
+                   losses=losses, overflow_steps=sum(found),
+                   loss_scale=float(state.scaler.loss_scale))
+    log("train: " + json.dumps(metrics))
+    log("train launches: " + json.dumps(counts))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: non-finite loss in {losses}")
+    if not losses[-1] <= losses[0] - TRAIN["min_drop"]:
+        raise AssertionError(f"train: loss {losses[0]:.4f} -> "
+                             f"{losses[-1]:.4f}, less than "
+                             f"{TRAIN['min_drop']} nats down")
+    for i, c in enumerate(per_step):
+        if c != PER_STEP:
+            raise AssertionError(f"train step {i}: launches {c}, expected "
+                                 f"{PER_STEP}")
+    return (state, step_fn, boost, tokens), metrics, counts
+
+
+def _kernel_group(name: str) -> str:
+    """The part of a train step a device kernel belongs to, by name."""
+    n = name.lower()
+    if "flash_" in n:
+        return "flash attention (ours)"
+    if n.startswith("void ln_") or "ln_fwd" in n or "ln_bwd" in n:
+        return "LayerNorm (ours)"
+    if "gemm" in n or "cutlass" in n or "xmma" in n or "nvjet" in n:
+        fp32 = any(t in n for t in ("sgemm", "f32f32", "_tf32", "fp32"))
+        return "GEMM fp32 (LM head)" if fp32 else "GEMM bf16"
+    return "other (elementwise, reductions, copies)"
+
+
+def _profile_step(torch, setup):
+    """Device time of one more train step by kernel group, from a
+    ``torch.profiler`` trace, beside the step's host wall time: where a
+    step goes and the device's idle share. Reads nothing into any
+    check; a profiler that sees no device time is reported as such."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state, step_fn, _, tokens = setup
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, tokens)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    groups, names = {}, []
+    events = prof.key_averages()
+
+    def on_device(e):
+        return "CUDA" in str(getattr(e, "device_type", ""))
+
+    # device kernels only: host ops carry their kernels' time too, and a
+    # range a host annotation (``Optimizer.step#FusedAdam.step``) mirrors
+    # onto the device spans kernels counted on their own
+    host_keys = {e.key for e in events if not on_device(e)}
+    for e in events:
+        if not on_device(e) or e.key in host_keys:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us <= 0:
+            continue
+        g = _kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+        names.append((us / 1e3, e.count, e.key[:70]))
+    busy = sum(groups.values())
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy,
+               idle_share=1.0 - busy / wall_ms if busy else None,
+               by_group_ms=dict(sorted(groups.items(),
+                                       key=lambda kv: -kv[1])))
+    log("train profile (one step): " + json.dumps(out))
+    for ms, count, key in sorted(names, reverse=True)[:12]:
+        log(f"  {ms:9.3f} ms  x{count:<5d} {key}")
+    if not busy:
+        log("  the profiler recorded no device time")
+    return out
+
+
+def phase_overflow(torch, setup):
+    """One step whose scaled backward overflows: found_inf, the scale
+    halved, and parameters, masters and Adam state (its step count
+    included) bitwise unchanged. No finite scale overflows bf16 or fp32
+    gradients of this size (their largest is far below 2^128 / 2^16),
+    and a scaled loss's backward seed is the scale itself; the step
+    multiplies its loss by 2^127, so the seed, 2^127 * 2^16, is inf."""
+    state, step_fn, boost, tokens = setup
+    opt = state.optimizer
+
+    def snapshot():
+        return ([p.detach().clone() for p in state.params],
+                [p.detach().clone() for p in state.master_params],
+                [t.clone() for p in state.master_params
+                 for t in opt.state[p].values()],
+                [g["step"] for g in opt.param_groups])
+
+    before = snapshot()
+    scale = float(state.scaler.loss_scale)
+    boost["factor"] = 2.0 ** 127
+    state, m = step_fn(state, tokens)
+    boost["factor"] = 1.0
+    torch.cuda.synchronize()
+    after = snapshot()
+    same = all(torch.equal(a, b) for x, y in zip(before[:3], after[:3])
+               for a, b in zip(x, y)) and before[3] == after[3]
+    new_scale = float(state.scaler.loss_scale)
+    log(f"overflow: found_inf {m['found_inf']}, scale {scale:g} -> "
+        f"{new_scale:g}, params/masters/Adam state unchanged {same}, "
+        f"Adam step {after[3]}")
+    if not (m["found_inf"] and new_scale == scale / 2 and same):
+        raise AssertionError("overflow step: expected found_inf, a halved "
+                             "scale and every parameter, master and Adam "
+                             "state bitwise unchanged")
+
+
+def _grad_limit(g):
+    """Step-1 gradients, card vs CPU, O0 fp32: a sum of n fp32 terms in
+    another order moves by about sqrt(n) * 2^-24 of the sum of |terms|
+    (1.3e-5 of it for the head's 50257-way sums, less elsewhere); through
+    12 layers forward and back, and where terms cancel, a gradient
+    element's error is measured against its tensor's scale. Limit: 1e-4
+    of the tensor's largest |g|."""
+    return 1e-4 * g.abs().max()
+
+
+def phase_train_parity(torch, model):
+    """The same weights at O0 fp32, card vs CPU (plain path), full width
+    and depth, B 2 x S 256, 3 steps; TF32 off only inside these calls."""
+    B, S, steps = (TRAIN_PARITY[k] for k in ("batch", "seq", "steps"))
+    tokens = _train_tokens(torch, model.vocab_size, B, S, 1)
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    runs = {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        for dev in ("cuda", "cpu"):
+            state, step_fn, _, head = _train_setup(torch, model, dev, "O0")
+            batch = tokens.to(dev)
+            head(state.model, batch).backward()
+            names = [n for n, _ in state.model.named_parameters()]
+            grads = {n: p.grad.detach().cpu() for n, p in
+                     zip(names, state.params)}
+            for p in state.params:
+                p.grad = None
+            losses = []
+            for _ in range(steps):
+                state, m = step_fn(state, batch)
+                losses.append(float(m["loss"]))
+            runs[dev] = (losses, grads, {n: p.detach().cpu() for n, p in
+                                         zip(names, state.params)})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old[0]
+        torch.backends.cudnn.allow_tf32 = old[1]
+    (l_dev, g_dev, p_dev), (l_cpu, g_cpu, p_cpu) = runs["cuda"], runs["cpu"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu)]
+    g_ratio = max(float((g_dev[n] - g_cpu[n]).abs().max()
+                        / _grad_limit(g_cpu[n])) for n in g_cpu)
+    bound = 2 * TRAIN["lr"] * steps
+    p_diff = max(float((p_dev[n] - p_cpu[n]).abs().max()) for n in p_cpu)
+    near = sum(int(((p_dev[n] - p_cpu[n]).abs() <= 1e-6).sum())
+               for n in p_cpu) / sum(t.numel() for t in p_cpu.values())
+    log(f"train parity: losses cuda {l_dev} cpu {l_cpu} (relative "
+        f"{['%.2e' % x for x in rel]}); step-1 grads at {g_ratio:.3g} of "
+        f"the limit; params max |d| {p_diff:.3g} (Adam bound {bound:g}), "
+        f"{100 * near:.4f}% within 1e-6")
+    if max(rel) > 1e-4:
+        raise AssertionError(f"train parity: losses differ by {max(rel)} "
+                             f"relative > 1e-4")
+    if not g_ratio <= 1.0:
+        raise AssertionError(f"train parity: step-1 gradients at "
+                             f"{g_ratio:.3g}x their limit")
+    if not p_diff <= bound:
+        raise AssertionError(f"train parity: parameters {p_diff} apart, "
+                             f"beyond Adam's sign bound {bound}")
+    return dict(loss_rel=max(rel), grad_limit_share=g_ratio,
+                param_max_diff=p_diff)
+
+
+def _kernel_line(results, train_results, counts, train_counts):
+    """The seven ported kernels, each at its main path's shape (bf16):
+    launches are the counts of the paths it ran on (serve, train)."""
     main = {"layer_norm": (8, "torch.bfloat16"),
             "paged_decode_attention": (8, "torch.bfloat16"),
             "paged_prefill_attention": (256, "torch.bfloat16")}
@@ -474,17 +1021,50 @@ def _kernel_line(results, counts):
             "apex_tpu_torch/csrc/paged_attention.cu",
             "apex_tpu/kernels/prefill_attention.py:413",
             "B=1 C=256 offset=256 h=12 d=64 page_len=128 bf16"),
+        "layer_norm_bwd": ("apex_tpu_torch/csrc/layer_norm.cu",
+                           "apex_tpu/kernels/layer_norm.py:221",
+                           "rows=8192 H=768 bf16 x, fp32 gamma"),
+        "flash_fwd": ("apex_tpu_torch/csrc/flash_attention.cu",
+                      "apex_tpu/kernels/flash_attention.py:548",
+                      "bh=96 S=1024 d=64 causal bf16"),
+        "flash_bwd_dkdv": ("apex_tpu_torch/csrc/flash_attention.cu",
+                           "apex_tpu/kernels/flash_attention.py:615",
+                           "bh=96 S=1024 d=64 causal bf16"),
+        "flash_bwd_dq": ("apex_tpu_torch/csrc/flash_attention.cu",
+                         "apex_tpu/kernels/flash_attention.py:653",
+                         "bh=96 S=1024 d=64 causal bf16"),
     }
+    o2 = "torch.bfloat16 x, torch.float32 gamma"
+    rows = {name: results[(name,) + key] for name, key in main.items()}
+    rows["layer_norm_bwd"] = train_results[("layer_norm_bwd", o2)]
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        rows[name] = train_results[(name.replace("_bwd", ""),
+                                    "torch.bfloat16")]
     out = []
-    for name, key in main.items():
-        r = results[(name,) + key]
+    for name, r in rows.items():
         src, replaces, shape = info[name]
-        out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": counts[name],
-                    "max_abs_err": r["err"], "ms": r["ms"],
-                    "plain_ms": r["plain"], "bound_ms": r["bound"],
-                    "bound_by": r["by"], "library_ms": r["library"],
-                    "shape": shape})
+        by_path = {"serve": counts.get(name, 0),
+                   "train": train_counts.get(name, 0)}
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path, "max_abs_err": r["err"],
+                 "ms": r["ms"], "plain_ms": r["plain"],
+                 "bound_ms": r["bound"], "bound_by": r["by"],
+                 "library_ms": r["library"], "shape": shape}
+        if name == "layer_norm":
+            t = train_results[("layer_norm_fwd", o2)]
+            entry["train_shape"] = {
+                "shape": "rows=8192 H=768 bf16 x, fp32 gamma",
+                "max_abs_err": t["err"], "ms": t["ms"],
+                "plain_ms": t["plain"], "bound_ms": t["bound"],
+                "bound_by": t["by"], "library_ms": t["library"]}
+        if name == "layer_norm_bwd":
+            entry["library_ms_bf16_gamma"] = train_results[(
+                "layer_norm_bwd", "torch.bfloat16 x, torch.bfloat16 gamma")
+            ]["library"]
+        if name.startswith("flash_bwd"):
+            entry["library_computes"] = "dq, dk and dv together"
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -507,12 +1087,21 @@ def main() -> int:
     phase_card(torch)
     phase_build()
     results = phase_kernels(torch)
+    train_results = phase_train_kernels(torch)
+    log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
     model = create_lm(**GPT2)
     _, counts = phase_serve(torch, model, SERVE)
     phase_parity(torch, model, dict(max_len=1024, prefill_len=512,
                                     chunk_len=256))
+    log(f"serve done at {time.perf_counter() - t_start:.1f} s")
+    setup, _, train_counts = phase_train(torch, model)
+    _profile_step(torch, setup)
+    phase_overflow(torch, setup)
+    del setup
+    phase_train_parity(torch, model)
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps(_kernel_line(results, counts)))
+    print(json.dumps(_kernel_line(results, train_results, counts,
+                                  train_counts)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

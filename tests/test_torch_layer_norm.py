@@ -125,3 +125,95 @@ def test_cpu_path_launches_no_kernel():
     layer_norm(torch.from_numpy(x), torch.from_numpy(w),
                torch.from_numpy(b))
     assert kernels.launches["layer_norm"] == 0
+
+
+# ------------------------------------------------------------- backward
+# (x dtype, gamma/beta dtype): the serve path's pairs and amp O2's mixed
+# one. dx is compared in its own dtype: fp32 at 1e-5, bf16 at one bf16
+# ulp (2^-7 relative, plus 1e-3 absolute where dx crosses 0). dgamma /
+# dbeta sum 16 rows in fp32 in another order: fp32 at 1e-4, bf16 (when
+# gamma is bf16) at one bf16 ulp.
+GRAD_CASES = {"float32": (jnp.float32, torch.float32, jnp.float32,
+                          torch.float32),
+              "bfloat16": (jnp.bfloat16, torch.bfloat16, jnp.bfloat16,
+                           torch.bfloat16),
+              "bf16_x_fp32_gamma": (jnp.bfloat16, torch.bfloat16,
+                                    jnp.float32, torch.float32)}
+
+
+def _tol(tdt):
+    return (1e-3, 2.0 ** -7) if tdt == torch.bfloat16 else (1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("mem_eff", [False, True])
+def test_backward_matches_jax_vjp(case, affine, rms, mem_eff):
+    from apex_tpu.kernels.layer_norm import layer_norm as jax_layer_norm
+    from apex_tpu.kernels.layer_norm import rms_norm as jax_rms_norm
+
+    jdt, tdt, jpdt, tpdt = GRAD_CASES[case]
+    x, w, b = _inputs(16, 256, seed=3)
+    dy = np.random.default_rng(4).standard_normal((16, 256)).astype(
+        np.float32)
+    jx, tx = _pair(x, jdt, tdt)
+    jdy, tdy = _pair(dy, jdt, tdt)
+    jw, tw = _pair(w, jpdt, tpdt) if affine else (None, None)
+    jb, tb = _pair(b, jpdt, tpdt) if affine and not rms else (None, None)
+
+    def jfwd(x_, w_, b_):
+        if rms:
+            return jax_rms_norm(x_, w_, interpret=True,
+                                memory_efficient=mem_eff)
+        return jax_layer_norm(x_, w_, b_, interpret=True,
+                              memory_efficient=mem_eff)
+
+    want_y, vjp = jax.vjp(jfwd, jx, jw, jb)
+    want_dx, want_dw, want_db = vjp(jdy)
+
+    tx.requires_grad_(True)
+    for t in (tw, tb):
+        if t is not None:
+            t.requires_grad_(True)
+    if rms:
+        y = rms_norm(tx, tw, memory_efficient=mem_eff)[0]
+    else:
+        y = layer_norm(tx, tw, tb, memory_efficient=mem_eff)[0]
+    y.backward(tdy)
+    _close(y.detach(), want_y, *_tol(tdt))
+    assert tx.grad.dtype == tdt
+    _close(tx.grad, want_dx, *_tol(tdt))
+    if affine:
+        assert tw.grad.dtype == tpdt
+        _close(tw.grad, want_dw, *_tol(tpdt))
+        if not rms:
+            _close(tb.grad, want_db, *_tol(tpdt))
+
+
+def test_mixed_dtype_forward_matches_jax():
+    # amp O2: bf16 x, fp32 gamma/beta, y in bf16
+    x, w, b = _inputs(16, 256, seed=5)
+    want = jax.jit(jax_ln_fwd, static_argnums=(3, 4, 5))(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), jnp.asarray(b), 1e-5,
+        False, True)[0]
+    y = layer_norm(torch.from_numpy(x).bfloat16(), torch.from_numpy(w),
+                   torch.from_numpy(b))[0]
+    assert y.dtype == torch.bfloat16
+    _close(y, want, 1e-2, 0.0)
+
+
+def test_fused_norm_modules_backward_and_launch_counts():
+    from apex_tpu_torch.normalization import FusedRMSNorm
+
+    x, _, _ = _inputs(2 * 8, 128, seed=6)
+    x = torch.from_numpy(x).reshape(2, 8, 128).requires_grad_(True)
+    kernels.reset_launches()
+    for mod in (FusedLayerNorm(128, memory_efficient=True),
+                FusedRMSNorm(128)):
+        mod(x).square().sum().backward()
+        assert mod.weight.grad.shape == (128,)
+    assert FusedRMSNorm(128).bias is None
+    # CPU tensors: plain versions only, no kernel counted
+    assert kernels.launches["layer_norm"] == 0
+    assert kernels.launches["layer_norm_bwd"] == 0

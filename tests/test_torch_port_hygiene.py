@@ -5,8 +5,9 @@
   ``jaxlib``, ``flax``, ``optax`` or ``apex_tpu`` (``apex_tpu_torch``
   itself is fine).
 - Importing the port in a fresh interpreter loads no JAX module.
-- ``Engine(device=None)`` means the GPU: without one it raises instead
-  of running on the CPU, and ``chip_smoke.py`` exits non-zero with no
+- ``Engine(device=None)`` means the GPU, and so does the training
+  recipe's default ``--device``: without one both raise instead of
+  running on the CPU; and ``chip_smoke.py`` exits non-zero with no
   result line, in the checkout without a GPU and alone in an empty
   directory (run in this process).
 """
@@ -68,7 +69,9 @@ def _env():
 
 def test_port_import_loads_no_jax():
     code = ("import sys, apex_tpu_torch.serving, apex_tpu_torch.models, "
-            "apex_tpu_torch.kernels, apex_tpu_torch.amp; "
+            "apex_tpu_torch.kernels, apex_tpu_torch.amp, "
+            "apex_tpu_torch.optimizers, apex_tpu_torch.normalization, "
+            "apex_tpu_torch.examples.lm.main_amp; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], env=_env(),
@@ -86,6 +89,23 @@ def test_engine_default_device_is_the_gpu():
     model = create_lm("tiny", vocab_size=64, max_seq_len=32)
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(model, slots=1, max_len=32, prefill_len=16)
+
+
+def test_trainer_default_device_is_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: --device cuda would use it")
+    from apex_tpu_torch.examples.lm import main_amp
+
+    argv = ["--size", "tiny", "--vocab-size", "64", "-b", "2",
+            "--seq-len", "16", "--iters", "1", "--fused-head"]
+    assert main_amp.parse_args(argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main_amp.main(argv)
+    # the unported default loss names its kernels
+    with pytest.raises(NotImplementedError, match="#11 and #12"):
+        main_amp.main(argv[:-1] + ["--device", "cpu"])
+    out = main_amp.main(argv + ["--device", "cpu"])
+    assert len(out["loss_history"]) == 1
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from apex_tpu.models.transformer_lm import TransformerLM as JaxLM
-from apex_tpu_torch.models import TransformerLM, params_from_jax
+from apex_tpu_torch.models import (TransformerLM, params_from_jax,
+                                   params_to_jax)
 from apex_tpu_torch.models.transformer_lm import _LM_SIZES, create_lm
 
 VOCAB, HIDDEN, LAYERS, HEADS, MAX_SEQ = 256, 64, 2, 2, 128
@@ -124,13 +125,50 @@ def test_features_only_and_head(models):
 
 
 def test_no_cache_modes_are_a_later_slice(models):
+    # the training forward (no cache) is ported; monolithic prefill
+    # (return_kv) and the contiguous cache are the contiguous engine's
     _, _, tmodel = models
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        tmodel(torch.zeros((1, 4), dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="return_kv"):
+        tmodel(torch.zeros((1, 4), dtype=torch.long), return_kv=True)
+    with pytest.raises(NotImplementedError, match="remat"):
+        TransformerLM(vocab_size=VOCAB, hidden=HIDDEN, num_layers=1,
+                      num_heads=HEADS, remat=True)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        TransformerLM(vocab_size=VOCAB, hidden=HIDDEN, num_layers=1,
+                      num_heads=HEADS, dropout=0.1)
     k, v = (torch.from_numpy(a) for a in _pools(15))
     with pytest.raises(NotImplementedError, match="paged=False"):
         tmodel(torch.zeros((1, 1), dtype=torch.long), cache=(k, v),
                positions=torch.zeros(1, dtype=torch.int32))
+
+
+def test_training_forward_matches_jax(models):
+    # no cache: causal attention over positions [0, S), the flash
+    # attention path (its plain version on the CPU), fp32 at ATOL
+    jmodel, params, tmodel = models
+    tokens = np.random.default_rng(16).integers(0, VOCAB, (2, 24))
+    want = jax.jit(lambda p, t: jmodel.apply({"params": p}, t,
+                                             train=True))(
+        params, jnp.asarray(tokens, jnp.int32))
+    feats = tmodel(torch.from_numpy(tokens), features_only=True)
+    logits = tmodel(torch.from_numpy(tokens))
+    assert feats.shape == (2, 24, HIDDEN) and logits.dtype == torch.float32
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(want),
+                               atol=ATOL, rtol=0)
+    torch.testing.assert_close(tmodel.head(feats), logits)
+
+
+def test_params_to_jax_inverts_params_from_jax(models):
+    _, params, tmodel = models
+    tree = params_to_jax(tmodel.state_dict())
+    want = jax.tree_util.tree_map(np.asarray, params)
+    assert jax.tree_util.tree_structure(tree) == \
+        jax.tree_util.tree_structure(want)
+    for a, b in zip(jax.tree_util.tree_leaves(tree),
+                    jax.tree_util.tree_leaves(want)):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="unmapped"):
+        params_to_jax(dict(tmodel.state_dict(), extra=torch.zeros(1)))
 
 
 def test_params_from_jax_shapes(models):
