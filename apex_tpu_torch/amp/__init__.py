@@ -5,7 +5,9 @@ mixed-precision train step (the port of ``apex_tpu/amp``).
 the semantics of ``apex_tpu.amp.make_train_step``:
 
 1. the loss is scaled and backpropagated (``accum_steps`` microbatches'
-   SCALED grads summed in an fp32 accumulator, then divided by N);
+   SCALED grads summed in an fp32 accumulator, then divided by N), with
+   the policy installed as the ambient :func:`autocast` policy around
+   the forward and backward (O1's per-op casts);
 2. the grads are unscaled into fp32 master grads, and ``found_inf``
    reports any inf or NaN among them;
 3. on ``found_inf`` the step is skipped: parameters, masters and the
@@ -30,6 +32,9 @@ from typing import Any, Callable, List, Optional
 import torch
 from torch import nn
 
+from . import lists
+from .autocast import (active_policy, autocast, cast_op_inputs,
+                       op_compute_dtype, resolve_dtype)
 from .policy import Policy, is_norm_param, opt_levels, resolve_policy
 from .scaler import (ScalerState, init_scaler, scale_loss, unscale,
                      update_scale)
@@ -37,7 +42,8 @@ from .scaler import (ScalerState, init_scaler, scale_loss, unscale,
 __all__ = ["Policy", "resolve_policy", "is_norm_param", "opt_levels",
            "ScalerState", "init_scaler", "scale_loss", "unscale",
            "update_scale", "AmpState", "make_train_step",
-           "to_microbatches"]
+           "to_microbatches", "autocast", "active_policy",
+           "op_compute_dtype", "resolve_dtype", "cast_op_inputs", "lists"]
 
 
 @dataclasses.dataclass
@@ -136,8 +142,9 @@ def make_train_step(loss_fn: Callable[[nn.Module, Any], torch.Tensor],
         and the SCALED grads, and clears the parameters' grads."""
         for p in state.params:
             p.grad = None
-        loss = loss_fn(state.model, batch)
-        scale_loss(loss, state.scaler).backward()
+        with autocast(policy):
+            loss = loss_fn(state.model, batch)
+            scale_loss(loss, state.scaler).backward()
         grads = [p.grad for p in state.params]
         for p in state.params:
             p.grad = None

@@ -6,7 +6,8 @@ halves on overflow (floored at ``min_loss_scale``), and resets the
 clean-step counter in both cases; ``hysteresis`` (Megatron's
 ``DynamicGradScaler``) tolerates that many overflows before backing
 off. ``unscale`` multiplies grads by ``1/scale`` into fp32 master grads
-and reports ``found_inf``: on overflow the step is skipped and the
+and reports ``found_inf`` — on CUDA through multi-tensor kernel #21, one
+host read of its flag per step: on overflow the step is skipped and the
 optimizer state does not advance.
 
 As in the JAX package the scaler is a value (:class:`ScalerState`) that
@@ -21,6 +22,8 @@ import dataclasses
 from typing import Iterable, List, Optional, Tuple, Union
 
 import torch
+
+from apex_tpu_torch.kernels.multi_tensor import multi_tensor_scale_
 
 __all__ = ["ScalerState", "init_scaler", "scale_loss", "unscale",
            "update_scale"]
@@ -84,19 +87,30 @@ def unscale(grads: Iterable[Optional[torch.Tensor]], state: ScalerState,
             ) -> Tuple[List[Optional[torch.Tensor]], bool]:
     """``grads * (1/scale)`` in ``out_dtype`` (fp32 master grads), and
     ``found_inf``: whether any gradient holds an inf or a NaN. ``None``
-    entries (parameters without a gradient) pass through."""
-    # the fp32 reciprocal, exact as a Python float: the multiply below
-    # runs in fp32 on the gradient's device with no scalar copy
+    entries (parameters without a gradient) pass through.
+
+    On CUDA gradients this is multi-tensor kernel #21
+    (``amp_C.multi_tensor_scale``, the JAX package's ``fused_scale``):
+    one launch per gradient dtype writes every output — views of one
+    new ``out_dtype`` buffer — and sets one device flag, which the host
+    reads once. On CPU tensors it is the plain version, tensor by
+    tensor."""
+    # the fp32 reciprocal, exact as a Python float: the multiply runs in
+    # fp32 on the gradient's device with no scalar copy
     inv = float((1.0 / state.loss_scale).to(_F32))
-    out, flags = [], []
-    for g in grads:
-        if g is None:
-            out.append(None)
-            continue
-        flags.append(torch.logical_not(torch.isfinite(g).all()))
-        out.append((g.float() * inv).to(out_dtype))
-    found = bool(torch.stack(flags).any()) if flags else False
-    return out, found
+    grads = list(grads)
+    present = [g for g in grads if g is not None]
+    if not present:
+        return grads, False
+    dev = present[0].device
+    sizes = [g.numel() for g in present]
+    pieces = iter(torch.split(torch.empty(sum(sizes), dtype=out_dtype,
+                                          device=dev), sizes))
+    out = [None if g is None else next(pieces).view(g.shape) for g in grads]
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    multi_tensor_scale_(flag, [[g.contiguous() for g in present],
+                               [o for o in out if o is not None]], inv)
+    return out, bool(flag.item())
 
 
 def update_scale(state: ScalerState, found_inf: bool) -> ScalerState:

@@ -1,23 +1,29 @@
-"""Transformer-LM training recipe: amp O2, dynamic loss scaling,
-FusedAdam (AdamW) and the fused LM-head loss, on one GPU.
+"""Transformer-LM training recipe: amp (O2 by default, or O0 / O1 / O3),
+dynamic loss scaling, FusedAdam (AdamW) and the fused softmax
+cross-entropy, on one GPU.
 
 The port of ``examples/lm/main_amp.py``'s single-chip ``main()``::
 
     python -m apex_tpu_torch.examples.lm.main_amp --size gpt2 \\
-        --vocab-size 50257 -b 8 --seq-len 1024 --iters 20 --fused-head
+        --vocab-size 50257 -b 8 --seq-len 1024 --iters 20
 
 It trains ``create_lm(size)`` on synthetic Zipf-ish tokens (or random
 windows of a pre-tokenized ``--data`` .npy stream) through
-:func:`apex_tpu_torch.amp.make_train_step`; every LayerNorm and
-attention call runs on the port's CUDA kernels, forward and backward.
-``--device`` defaults to the GPU and raises when torch sees none;
-``--device cpu`` runs the plain PyTorch versions (small sizes only).
+:func:`apex_tpu_torch.amp.make_train_step`. The default loss is
+``softmax_cross_entropy_loss`` on the model's fp32 logits (xentropy
+kernels #11 and #12); ``--fused-head`` fuses the tied head into the loss
+instead, so the ``[B, S, V]`` logits are never held whole.
+``--opt-layout`` picks FusedAdam's per-tensor (``tree``, the default) or
+superbuffer (``flat``) state; both step through multi-tensor kernel #24,
+and the scaler's unscale runs kernel #21. Every LayerNorm and attention
+call runs on the port's CUDA kernels, forward and backward. ``--device``
+defaults to the GPU and raises when torch sees none; ``--device cpu``
+runs the plain PyTorch versions (small sizes only).
 
-Only ``--fused-head`` is ported: the default loss,
-``softmax_cross_entropy_loss``, needs xentropy kernels #11 and #12, the
-next slice. The parallel tiers (data, tensor, pipeline parallel, ZeRO),
-telemetry, checkpoints, profiling and ``--generate`` are later slices
-(ROADMAP).
+The parallel tiers (data, tensor, pipeline, sequence parallel,
+``--vocab-parallel``, ZeRO, ``--partitioning``), telemetry, checkpoints,
+profiling, ``--remat``, ``--generate`` and the other flags of the JAX
+recipe are later slices (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 
 from apex_tpu_torch import amp
 from apex_tpu_torch.kernels.lm_head_loss import lm_head_xentropy
+from apex_tpu_torch.kernels.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.models import create_lm
 from apex_tpu_torch.optimizers import FusedAdam
 
@@ -54,7 +61,11 @@ def parse_args(argv=None):
     p.add_argument("--fused-head", action="store_true",
                    help="fuse the tied LM head into the loss "
                         "(kernels/lm_head_loss.py): the [B, S, V] logits "
-                        "are never held whole; required by this port")
+                        "are never held whole")
+    p.add_argument("--opt-layout", default="tree", choices=["tree", "flat"],
+                   help="FusedAdam state layout: per-tensor 'tree' "
+                        "(default) or the 'flat' fp32 superbuffer "
+                        "(bitwise-identical)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--accum-steps", type=int, default=1, metavar="N",
                    help="microbatch gradient accumulation: N microbatches "
@@ -112,6 +123,19 @@ def data_batch(data: np.ndarray, rng: np.random.Generator, batch: int,
                                       for i in idx]).astype(np.int64))
 
 
+def xent_loss_fn(smoothing: float):
+    """``loss_fn(model, tokens)``: the mean softmax cross-entropy of the
+    model's logits for ``tokens[:, :-1]`` against ``tokens[:, 1:]`` —
+    the recipe's default loss."""
+
+    def loss_fn(model, tokens):
+        logits = model(tokens[:, :-1])
+        return softmax_cross_entropy_loss(logits, tokens[:, 1:],
+                                          smoothing=smoothing).mean()
+
+    return loss_fn
+
+
 def fused_head_loss_fn(smoothing: float, head_dtype: torch.dtype):
     """``loss_fn(model, tokens)``: the mean fused-head cross-entropy of
     ``tokens[:, 1:]`` given ``tokens[:, :-1]``, the head GEMMs in
@@ -136,11 +160,6 @@ def main(argv=None):
     if args.batch_size % args.accum_steps:
         raise SystemExit(f"--batch-size {args.batch_size} must divide by "
                          f"--accum-steps {args.accum_steps}")
-    if not args.fused_head:
-        raise NotImplementedError(
-            "the default loss (softmax_cross_entropy_loss) runs xentropy "
-            "kernels #11 and #12, the next slice of the port (ROADMAP "
-            "Queue 1); pass --fused-head")
     device = resolve_device(args.device)
     policy = amp.resolve_policy(opt_level=args.opt_level,
                                 loss_scale=args.loss_scale, verbose=False)
@@ -149,8 +168,15 @@ def main(argv=None):
     model = create_lm(args.size, vocab_size=args.vocab_size,
                       max_seq_len=args.seq_len, seed=args.seed).to(device)
     optimizer = FusedAdam(model.parameters(), lr=args.lr,
-                          weight_decay=args.weight_decay, adam_w_mode=True)
-    loss_fn = fused_head_loss_fn(args.smoothing, policy.compute_dtype)
+                          weight_decay=args.weight_decay, adam_w_mode=True,
+                          layout=args.opt_layout)
+    if args.fused_head:
+        # the head GEMMs' dtype: the policy's blanket dtype, fp32 under O1
+        # (as the JAX recipe resolves "linear" outside the autocast scope)
+        loss_fn = fused_head_loss_fn(args.smoothing,
+                                     policy.model_dtype or torch.float32)
+    else:
+        loss_fn = xent_loss_fn(args.smoothing)
     init_fn, step_fn = amp.make_train_step(loss_fn, optimizer, policy,
                                            accum_steps=args.accum_steps)
     state = init_fn(model)

@@ -22,7 +22,8 @@ import torch
 #: launches per kernel since the last :func:`reset_launches`, keyed by
 #: kernel name (``layer_norm``, ``layer_norm_bwd``,
 #: ``paged_decode_attention``, ``paged_prefill_attention``, ``flash_fwd``,
-#: ``flash_bwd_dkdv``, ``flash_bwd_dq``)
+#: ``flash_bwd_dkdv``, ``flash_bwd_dq``, ``xent_fwd``, ``xent_bwd``,
+#: ``multi_tensor_scale``, ``multi_tensor_adam``)
 launches: collections.Counter = collections.Counter()
 
 
@@ -77,6 +78,11 @@ from .prefill_attention import (  # noqa: E402,F401
 from .flash_attention import (  # noqa: E402,F401
     flash_attention, flash_bwd_reference, flash_fwd_reference,
     mha_reference)
-from .xentropy import xent_reference  # noqa: E402,F401
+from .xentropy import (  # noqa: E402,F401
+    softmax_cross_entropy_loss, xent_bwd_reference, xent_fwd_reference,
+    xent_reference)
+from .multi_tensor import (  # noqa: E402,F401
+    adam_tree_step, fused_adam_step, fused_scale, multi_tensor_adam_,
+    multi_tensor_scale_)
 from .lm_head_loss import (  # noqa: E402,F401
     lm_head_xent_reference, lm_head_xentropy)

@@ -31,7 +31,8 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
 
 #: the kernel sources, by library name (``csrc/<name>.cu``)
-SOURCES = ("layer_norm", "paged_attention", "flash_attention")
+SOURCES = ("layer_norm", "paged_attention", "flash_attention", "xentropy",
+           "multi_tensor")
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -33,6 +33,13 @@ whole sequence at positions ``[0, S)``, differentiable end to end
 (LayerNorm and attention through their CUDA kernels' backward).
 ``return_kv`` (monolithic prefill) belongs to the contiguous engine, a
 later slice, and raises; so do ``dropout > 0`` and ``remat``.
+
+Under amp O1 (an active :func:`~apex_tpu_torch.amp.autocast.autocast`
+policy with per-op casts) the dense sites resolve ``"linear"`` per call,
+as the JAX modules do: the embedding sum, the GEMMs and the MLP input
+run in bf16 from fp32 parameters cast per call (so the gradients reach
+the fp32 parameters), q/k/v enter flash attention in bf16, the
+LayerNorms run in fp32 (``"layer_norm"``) and the tied head stays fp32.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from apex_tpu_torch.amp.autocast import resolve_dtype
 from apex_tpu_torch.kernels.decode_attention import paged_decode_attention
 from apex_tpu_torch.kernels.flash_attention import flash_attention
 from apex_tpu_torch.kernels.prefill_attention import (
@@ -56,6 +64,23 @@ __all__ = ["SelfAttention", "TransformerBlock", "TransformerLM",
 _NO_RETURN_KV = ("return_kv (monolithic prefill) belongs to the contiguous "
                  "engine, a later slice of the port (ROADMAP Queue 3); "
                  "serve through the paged cache modes")
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)`` in the dtype the active amp policy gives ``linear``
+    (O1: bf16, with ``x``, the weight and the bias cast per call), else
+    in the operands' own dtypes."""
+    dtype = resolve_dtype(None, "linear")
+    if dtype is None:
+        return layer(x)
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def _dense_dtype(like: torch.Tensor) -> torch.dtype:
+    """The dense sites' activation dtype: the policy's ``linear`` dtype
+    under O1, else the parameters' (``like``'s)."""
+    return resolve_dtype(None, "linear", like.dtype)
 
 
 class SelfAttention(nn.Module):
@@ -78,11 +103,12 @@ class SelfAttention(nn.Module):
         B, S, H = x.shape
         heads = self.num_heads
         d = H // heads
-        qkv = self.qkv(x).reshape(B, S, 3, heads, d).permute(2, 0, 3, 1, 4)
+        qkv = _linear(self.qkv, x).reshape(B, S, 3, heads, d).permute(
+            2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]                  # [B, h, S, d]
         if cache is None:
             ctx = flash_attention(q, k, v, causal=True)
-            return self.proj(ctx.transpose(1, 2).reshape(B, S, H))
+            return _linear(self.proj, ctx.transpose(1, 2).reshape(B, S, H))
         k_pool, v_pool, page_table = cache
         page_len = k_pool.shape[2]
         L = page_table.shape[1] * page_len
@@ -115,7 +141,7 @@ class SelfAttention(nn.Module):
             ctx = paged_prefill_attention(q.contiguous(), k_pool, v_pool,
                                           page_table, pos)
         out = ctx.reshape(B, heads, S, d).transpose(1, 2).reshape(B, S, H)
-        return self.proj(out)
+        return _linear(self.proj, out)
 
 
 class TransformerBlock(nn.Module):
@@ -132,9 +158,10 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x, cache=None, positions=None):
         x = x + self.attn(self.ln_attn(x), cache, positions)
-        h = self.mlp_in(self.ln_mlp(x))
-        h = F.gelu(h.float(), approximate="tanh").to(self.mlp_out.weight.dtype)
-        return x + self.mlp_out(h)
+        h = _linear(self.mlp_in, self.ln_mlp(x))
+        h = F.gelu(h.float(), approximate="tanh").to(
+            _dense_dtype(self.mlp_out.weight))
+        return x + _linear(self.mlp_out, h)
 
 
 class TransformerLM(nn.Module):
@@ -231,7 +258,8 @@ class TransformerLM(nn.Module):
         ppos = (positions[:, None].long()
                 + torch.arange(S, device=tokens.device)[None, :]).clamp(
                     0, self.max_seq_len - 1)
-        x = (self.wte(tokens) + self.wpe[ppos]).to(self.wte.weight.dtype)
+        x = (self.wte(tokens) + self.wpe[ppos]).to(
+            _dense_dtype(self.wte.weight))
         for i, block in enumerate(self.blocks):
             x = block(x, (k_pools[i], v_pools[i], page_table), positions)
         x = self.ln_f(x)
@@ -245,7 +273,8 @@ class TransformerLM(nn.Module):
         if S > self.max_seq_len:
             raise ValueError(f"sequence {S} > max_seq_len "
                              f"{self.max_seq_len}")
-        x = (self.wte(tokens) + self.wpe[:S][None]).to(self.wte.weight.dtype)
+        x = (self.wte(tokens) + self.wpe[:S][None]).to(
+            _dense_dtype(self.wte.weight))
         for block in self.blocks:
             x = block(x)
         x = self.ln_f(x)

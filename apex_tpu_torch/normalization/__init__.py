@@ -9,6 +9,12 @@ flat. Statistics are fp32 in every case. Parameters are created in
 ``param_dtype`` (fp32 by default) and stay fp32 under amp O2, which
 casts the activations around them to bf16 (apex's "Mixed" variants:
 fp32 params with half I/O).
+
+With ``dtype=None`` an active amp policy decides the I/O dtype
+(``resolve_dtype(dtype, "layer_norm")``, as the JAX modules do): under
+O1 ``layer_norm`` is an FP32_FUNCS op, so the input is lifted to fp32
+and, with O1's fp32 parameters, the kernels run their (fp32, fp32)
+instantiation; the next half op casts back down.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Optional, Sequence, Union
 import torch
 from torch import nn
 
+from apex_tpu_torch.amp.autocast import resolve_dtype
 from apex_tpu_torch.kernels.layer_norm import layer_norm, rms_norm
 
 __all__ = ["FusedLayerNorm", "FusedRMSNorm"]
@@ -50,8 +57,9 @@ class _FusedNorm(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.dtype is not None:
-            x = x.to(self.dtype)
+        dtype = resolve_dtype(self.dtype, "layer_norm")
+        if dtype is not None:
+            x = x.to(dtype)
         n = len(self.normalized_shape)
         shape = x.shape
         x2 = x.reshape(shape[:x.ndim - n] + (-1,))
@@ -69,8 +77,10 @@ class _FusedNorm(nn.Module):
 class FusedLayerNorm(_FusedNorm):
     """LayerNorm over the trailing ``normalized_shape`` dims.
 
-    ``dtype=None`` (the default) keeps the input dtype for the I/O, with
-    fp32 statistics in the kernel; a dtype casts the input to it first.
+    ``dtype=None`` (the default) keeps the input dtype for the I/O —
+    unless an active amp policy assigns ``layer_norm`` one (O1: fp32) —
+    with fp32 statistics in the kernel; a dtype casts the input to it
+    first.
     ``elementwise_affine=False`` is the non-affine variant (no params).
     ``memory_efficient`` keeps the output, not the input, for the
     backward (apex's flag; gamma must stay nonzero).

@@ -43,12 +43,22 @@ class PagedKVCache:
     def create(cls, *, layers: int, num_pages: int, heads: int,
                page_len: int, head_dim: int,
                dtype: torch.dtype = torch.bfloat16,
-               device="cpu") -> "PagedKVCache":
+               device=None) -> "PagedKVCache":
         """A zeroed pool. ``num_pages`` INCLUDES the page-0 sentinel, so
-        the usable capacity is ``(num_pages - 1) * page_len`` positions."""
+        the usable capacity is ``(num_pages - 1) * page_len`` positions.
+        ``device=None`` means the GPU, as the JAX pool lives on the
+        accelerator: it raises when torch sees no CUDA device (pass
+        ``device="cpu"`` for a pool on the CPU)."""
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is the "
                              "sentinel/garbage page)")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "PagedKVCache.create(device=None) allocates on the GPU "
+                    "and torch sees no CUDA device; pass device='cpu' for "
+                    "a pool on the CPU")
+            device = "cuda"
         shape = (layers, num_pages, heads, page_len, head_dim)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))

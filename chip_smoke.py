@@ -45,20 +45,46 @@ the run with a non-zero exit:
    bound, its plain version and the PyTorch call (the backward of
    ``F.layer_norm``, ``F.scaled_dot_product_attention(is_causal=True)``
    and its backward, the latter timed eagerly with the forward outside);
-7. **train** — GPT-2 width and depth (``create_lm("gpt2", vocab 50257,
-   max_seq_len 1024)``) at amp O2 with the dynamic loss scaler, FusedAdam
-   (AdamW, lr 3e-4, weight decay 0.01) and the fused LM-head loss (chunk
-   8192): 12 steps of B 8 x S 1024 on one batch drawn with numpy seed 0.
-   Every loss finite, the last 0.5 nats below the first, and exactly 25
-   LayerNorm forwards and backwards and 12 flash forwards, dK/dV and dQ
-   launches per step; then one step under ``torch.profiler`` (device
-   time by kernel group and the idle share, reported, not gated) and
-   one overflow step (found_inf, the scale halved, parameters, masters
-   and Adam state bitwise unchanged);
-8. **train parity** — the same weights at O0 fp32, card vs CPU, full
-   width and depth, B 2 x S 256, 3 steps: losses within 1e-4 relative,
-   step-1 gradients within the limit of ``_grad_limit``, parameters
-   within Adam's sign bound.
+7. **loss and optimizer kernels** — at the default-loss training path's
+   shapes: softmax cross-entropy forward and backward (kernels 11-12) on
+   [8192, 50257] logits in fp32 and bf16, smoothing 0 and 0.1, four rows
+   labelled -100 and four labelled V (losses and lse at 2e-4; dlogits at
+   1e-6 of g * (softmax + target) plus one ulp of the output dtype; both
+   limits shown to fail with every label shifted by one); the
+   multi-tensor scale (kernel 21) over GPT-2's 148 gradients in bf16 and
+   fp32 with an inf in the last element, outputs bitwise equal to the
+   plain version and found_inf set (PyTorch's unscale takes no bf16 on
+   CUDA, so only the fp32 case has a library time); multi-tensor Adam (kernel 24) over
+   GPT-2's fp32 masters for 3 steps (two fp32 ulps, bitwise reported; a
+   step count off by one shown to fail it) and FusedAdam's tree and flat
+   layouts bitwise equal; each timed beside its bound, its plain version
+   and the PyTorch call (``F.cross_entropy(reduction="none",
+   label_smoothing=s)`` and its backward, ``torch.
+   _amp_foreach_non_finite_check_and_unscale_``, ``torch._fused_adamw_``;
+   used nowhere in the port);
+8. **train** — GPT-2 width and depth (``create_lm("gpt2", vocab 50257,
+   max_seq_len 1024)``), B 8 x S 1024 on one batch drawn with numpy seed
+   0, AdamW (lr 3e-4, weight decay 0.01) and the dynamic scaler, on three
+   paths (``TRAIN_PATHS``): amp O2 with the fused LM-head loss (chunk
+   8192) and the tree layout, 12 steps; O2 with the default loss
+   (``softmax_cross_entropy_loss`` on the fp32 logits), tree, 12 steps;
+   O1 with the default loss and the flat layout, 6 steps. Each path is
+   driven with every launch count zeroed just before it and read just
+   after: every loss finite, the last 0.5 nats below the first, and the
+   exact launches per step of every kernel (25 LayerNorm forwards and
+   backwards, 12 flash forwards, dK/dV and dQ, one xentropy forward and
+   backward on the default loss, two unscale launches under O2 and one
+   under O1, one Adam launch). One more step of each O2 path under
+   ``torch.profiler`` (device time by kernel group and the idle share,
+   reported, not gated), one overflow step on the fused-head path
+   (found_inf, the scale halved, parameters, masters and Adam state
+   bitwise unchanged), and the layout check: tree and flat FusedAdam
+   train the same weights at O2 for 3 steps to bitwise-equal masters;
+9. **train parity** — the same weights at O0 fp32, card vs CPU, full
+   width and depth, B 2 x S 256, 3 steps, once with the fused head and
+   the tree layout and once with the default loss and the flat layout:
+   losses within 1e-4 relative, step-1 gradients within the limit of
+   ``_grad_limit``, parameters within Adam's sign bound.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -101,9 +127,28 @@ LN_BWD_OPS_PER_ELEM = 13
 SUM_RTOL = 1e-5         # dgamma/dbeta: of the column's sum of |terms|
 REACH = 8               # a wrong input must fail every row it forms 1/8 of
 
+# xentropy (kernels 11-12): losses and lse (|loss| ~ 13 at these logits)
+# at 2e-4 absolute — two fp32 summation orders of 50,257 exponentials
+# differ by ~sqrt(n) * 2^-24 of the sum, ~1e-6 of lse typically and
+# ~1.3e-5 of it at worst; dlogits at 1e-6 of g * (softmax + target)
+# (eight fp32 ulps: one exp from the same lse in two implementations)
+# plus one ulp of the output dtype. A few rows at each end of the batch
+# are labelled -100 and V.
+XENT_LOSS_ATOL = 2e-4
+XENT_GRAD_RTOL = 1e-6
+XENT_BAD_ROWS = 4
+XENT_OPS_PER_ELEM = 6
+# Adam (kernel 24): the same fp32 operations in the same order as its
+# plain version (no FMA contraction), so bitwise is expected; held to
+# two fp32 ulps of the value (plus the smallest normal fp32, a floor for
+# exact zeros), and a step count off by one must fail it
+# in at least 99.9% of the parameters
+ADAM_RTOL = 2.0 ** -22
+ADAM_WRONG_SHARE = 0.999
+ADAM_OPS_PER_ELEM = 15
 GPT2 = dict(size="gpt2", vocab_size=50257, max_seq_len=1024)
-TRAIN = dict(batch=8, seq=1024, steps=12, lr=3e-4, weight_decay=0.01,
-             chunk=8192, min_drop=0.5)
+TRAIN = dict(batch=8, seq=1024, steps=12, o1_steps=6, lr=3e-4,
+             weight_decay=0.01, chunk=8192, min_drop=0.5)
 TRAIN_PARITY = dict(batch=2, seq=256, steps=3)
 TRAIN_ROWS, HIDDEN, HEADS, HEAD_DIM = 8192, 768, 12, 64
 SERVE = dict(slots=8, max_len=1024, prefill_len=512, chunk_len=256)
@@ -642,6 +687,275 @@ def phase_train_kernels(torch):
     return results
 
 
+# ------------------------------------------------ xentropy, multi-tensor
+def _xent_case(torch, timer, dtype, smoothing, seed):
+    """Kernels 11 and 12 at the LM's [8192, 50257] logits against their
+    plain versions, with a few rows labelled -100 and V; each limit shown
+    to fail with every label shifted by one; times."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.kernels.xentropy import (
+        xent_bwd_kernel, xent_bwd_reference, xent_fwd_kernel,
+        xent_fwd_reference)
+
+    n, v = TRAIN_ROWS, GPT2["vocab_size"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    logits = (torch.randn(n, v, generator=gen, device="cuda") * 2.0).to(
+        dtype)
+    labels = torch.randint(0, v, (n,), generator=gen, device="cuda")
+    labels[:XENT_BAD_ROWS] = -100
+    labels[XENT_BAD_ROWS:2 * XENT_BAD_ROWS] = v
+    valid = (labels >= 0) & (labels < v)
+    g = torch.rand(n, generator=gen, device="cuda") + 0.5
+    shifted = torch.where(valid, (labels + 1) % v, labels)
+    label = f"xent N={n} V={v} {dtype} smoothing={smoothing}"
+
+    loss, lse = xent_fwd_kernel(logits, labels, smoothing)
+    d = xent_bwd_kernel(logits, labels, lse, g, smoothing)
+    torch.cuda.synchronize()
+    loss_p, lse_p = xent_fwd_reference(logits, labels, smoothing)
+    if not (torch.equal(torch.isnan(loss), ~valid)
+            and torch.equal(torch.isnan(loss_p), ~valid)
+            and bool(torch.isfinite(lse).all())):
+        raise AssertionError(f"{label}: the NaN losses must be exactly the "
+                             "rows labelled out of range, lse finite")
+    tol = (XENT_LOSS_ATOL, 0.0)
+    err = max(_check(label + " loss", loss[valid], loss_p[valid], tol),
+              _check(label + " lse", lse, lse_p, tol))
+    wrong = xent_fwd_reference(logits, shifted, smoothing)[0]
+    moved = valid & ((wrong - loss_p).abs() > 2 * XENT_LOSS_ATOL)
+    _wrong_rows_check(f"{label} loss (labels shifted by one)",
+                      wrong[:, None], loss_p[:, None], moved, tol,
+                      lambda ex: ex[:, 0])
+    # dlogits: each element is g * (softmax - target), good to a few fp32
+    # ulps of g * (softmax + target) (one exp, from the same lse, in two
+    # implementations), plus one ulp of the output dtype for the rounding
+    want = xent_bwd_reference(logits, labels, lse, g, smoothing)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -23
+    terms = torch.exp(logits.float() - lse[:, None]) + smoothing / v
+    terms.scatter_add_(1, torch.where(valid, labels, 0)[:, None],
+                       valid[:, None].float())
+    terms.mul_(g[:, None])
+
+    def excess(got):
+        return ((got.float() - want.float()).abs()
+                / (XENT_GRAD_RTOL * terms + ulp * want.float().abs()))
+
+    ex = excess(d).max().item()
+    err_d = (d.float() - want.float()).abs().max().item()
+    log(f"  {label} dlogits: max|kernel - plain| = {err_d:.3g} ({ex:.3g} "
+        f"of the allowance)")
+    if not ex <= 1.0:
+        raise AssertionError(f"{label} dlogits: kernel disagrees with its "
+                             f"plain version, {ex:.3g}x the allowance")
+    least = excess(xent_bwd_reference(logits, shifted, lse, g, smoothing)
+                   ).amax(-1)[valid].min().item()
+    log(f"  {label} dlogits (labels shifted by one): least row excess "
+        f"{least:.3g} over {int(valid.sum())} rows (> 1 needed)")
+    if not least > 1.0:
+        raise AssertionError(f"{label}: the dlogits limit would pass "
+                             "shifted labels")
+    del terms, want
+    isz = logits.element_size()
+    ok = labels.clamp(0, v - 1)           # the library call checks labels
+    lib_in = logits.detach().requires_grad_(True)
+    lib_out = F.cross_entropy(lib_in, ok, reduction="none",
+                              label_smoothing=smoothing)
+    with torch.no_grad():
+        fwd = dict(
+            err=err, ms=timer(lambda: xent_fwd_kernel(logits, labels,
+                                                      smoothing)),
+            plain=timer(lambda: xent_fwd_reference(logits, labels,
+                                                   smoothing)),
+            library=timer(lambda: F.cross_entropy(
+                logits, ok, reduction="none", label_smoothing=smoothing)))
+        bwd = dict(
+            err=err_d, ms=timer(lambda: xent_bwd_kernel(
+                logits, labels, lse, g, smoothing)),
+            plain=timer(lambda: xent_bwd_reference(logits, labels, lse, g,
+                                                   smoothing)))
+    bwd["library"] = timer.eager(lambda: torch.autograd.grad(
+        lib_out, lib_in, g, retain_graph=True))
+    fwd["bound"], fwd["by"] = _bound(n * v * isz + n * 8 + 2 * n * 4,
+                                     XENT_OPS_PER_ELEM * n * v, dtype)
+    bwd["bound"], bwd["by"] = _bound(2 * n * v * isz + n * (8 + 4 + 4),
+                                     XENT_OPS_PER_ELEM * n * v, dtype)
+    return {"xent_fwd": fwd, "xent_bwd": bwd}
+
+
+def _mt_scale_case(torch, timer, shapes, dtype):
+    """Kernel 21 over GPT-2's gradient list (148 tensors) in ``dtype``
+    with fp32 outputs and an inf in the last element of the last tensor:
+    the outputs bitwise equal to the plain version's (a multiply by
+    2^-16 is exact) and found_inf set; times."""
+    from apex_tpu_torch import kernels
+    from apex_tpu_torch.kernels.multi_tensor import (
+        multi_tensor_scale_, multi_tensor_scale_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ins = [(torch.randn(s, generator=gen, device="cuda") * 2.0 ** 12).to(
+        dtype) for s in shapes]
+    ins[-1].view(-1)[-1] = float("inf")
+    outs = [torch.empty(s, device="cuda") for s in shapes]
+    want = [torch.empty(s, device="cuda") for s in shapes]
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    flag_p = torch.zeros_like(flag)
+    inv = 2.0 ** -16
+    before = kernels.launches["multi_tensor_scale"]
+    multi_tensor_scale_(flag, [ins, outs], inv)
+    launched = kernels.launches["multi_tensor_scale"] - before
+    multi_tensor_scale_reference(flag_p, [ins, want], inv)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(outs, want))
+    elems = sum(t.numel() for t in ins)
+    label = (f"multi_tensor_scale {len(ins)} tensors, {elems} elements, "
+             f"{dtype} -> fp32")
+    log(f"  {label}: {launched} launch(es); outputs bitwise equal to the "
+        f"plain version {same}; found_inf {int(flag.item())} (plain "
+        f"{int(flag_p.item())})")
+    if not (same and int(flag.item()) == 1 == int(flag_p.item())):
+        raise AssertionError(f"{label}: the outputs must equal the plain "
+                             "version's bitwise and found_inf be set")
+    library = None
+    if dtype == torch.float32:
+        # PyTorch's unscale (in place, in the input dtype) takes no bf16
+        # on CUDA: the bf16 case has no one library call to time
+        lib = [t.clone() for t in ins]
+        lib[-1].view(-1)[-1] = 1.0
+        found = torch.zeros(1, device="cuda")
+        inv_t = torch.full((1,), inv, device="cuda")
+        library = timer(
+            lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+                lib, found, inv_t))
+    bound, by = _bound(elems * (ins[0].element_size() + 4) + 4, 2 * elems,
+                       dtype)
+    return dict(err=0.0, bound=bound, by=by, launches_per_call=launched,
+                ms=timer(lambda: multi_tensor_scale_(flag, [ins, outs],
+                                                     inv)),
+                plain=timer(lambda: multi_tensor_scale_reference(
+                    flag, [ins, outs], inv)),
+                library=library)
+
+
+def _mt_adam_case(torch, timer, shapes):
+    """Kernel 24 over GPT-2's fp32 masters for 3 steps against the plain
+    version (held to ADAM_RTOL; the same fp32 operations, so bitwise is
+    expected and reported), the limit shown to fail with the step count
+    off by one, and FusedAdam's tree and flat layouts bitwise equal over
+    the same 3 steps; times."""
+    from apex_tpu_torch import kernels
+    from apex_tpu_torch.kernels.multi_tensor import (
+        multi_tensor_adam_, multi_tensor_adam_reference)
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    p0 = [torch.randn(s, generator=gen, device="cuda") * 0.02
+          for s in shapes]
+    grads = [[torch.randn(s, generator=gen, device="cuda") * 1e-3
+              for s in shapes] for _ in range(3)]
+    kw = dict(lr=TRAIN["lr"], beta1=0.9, beta2=0.999, eps=1e-8,
+              weight_decay=TRAIN["weight_decay"], adam_w_mode=True,
+              apply_delta=True)
+    elems = sum(t.numel() for t in p0)
+
+    def run(fn, first_step):
+        p = [t.clone() for t in p0]
+        m = [torch.zeros_like(t) for t in p0]
+        v = [torch.zeros_like(t) for t in p0]
+        for i, g in enumerate(grads):
+            fn([g, p, m, v], step=first_step + i, **kw)
+        return p, m, v
+
+    before = kernels.launches["multi_tensor_adam"]
+    got = run(multi_tensor_adam_, 1)
+    launched = (kernels.launches["multi_tensor_adam"] - before) // 3
+    want = run(multi_tensor_adam_reference, 1)
+    torch.cuda.synchronize()
+    label = f"multi_tensor_adam {len(p0)} tensors, {elems} fp32, 3 steps"
+    tol = (2.0 ** -126, ADAM_RTOL)
+    errs, bitwise = [], True
+    for name, a, b in zip(("p", "m", "v"), got, want):
+        errs.append(_check(f"{label} {name}",
+                           torch.cat([t.reshape(-1) for t in a]),
+                           torch.cat([t.reshape(-1) for t in b]), tol))
+        bitwise = bitwise and all(torch.equal(x, y) for x, y in zip(a, b))
+    log(f"  {label}: {launched} launch(es) per step; bitwise equal to the "
+        f"plain version: {bitwise}")
+    del want
+    wrong = run(multi_tensor_adam_reference, 2)[0]
+    share = sum(int((_excess(x, y, tol) > 1.0).sum())
+                for x, y in zip(wrong, got[0])) / elems
+    log(f"  {label} (step count off by one): {100 * share:.4f}% of the "
+        f"parameters fail the limit (>= {100 * ADAM_WRONG_SHARE}% needed)")
+    if not share >= ADAM_WRONG_SHARE:
+        raise AssertionError(f"{label}: the limit would pass a step count "
+                             "off by one")
+    del wrong
+    layouts = {}
+    for layout in ("tree", "flat"):
+        params = [torch.nn.Parameter(t.clone()) for t in p0]
+        opt = FusedAdam(params, lr=kw["lr"],
+                        weight_decay=kw["weight_decay"], layout=layout)
+        for g in grads:
+            for p, x in zip(params, g):
+                p.grad = x
+            opt.step()
+        layouts[layout] = params
+        del opt
+    same = all(torch.equal(a, b) for a, b in zip(layouts["tree"],
+                                                 layouts["flat"]))
+    same_kernel = all(torch.equal(a, b) for a, b in zip(layouts["tree"],
+                                                        got[0]))
+    log(f"  FusedAdam tree vs flat over 3 steps: bitwise {same} (tree vs "
+        f"the kernel run above: {same_kernel})")
+    if not same:
+        raise AssertionError("FusedAdam: the tree and flat layouts differ")
+    del layouts
+    p, m, v = got
+    lib_p, lib_m, lib_v = ([t.clone() for t in ts] for ts in got)
+    steps = [torch.ones((), device="cuda") for _ in p]
+    bound, by = _bound(28 * elems, ADAM_OPS_PER_ELEM * elems, torch.float32)
+    step_kw = dict(kw, step=4)
+    return dict(err=max(errs), bound=bound, by=by,
+                launches_per_call=launched,
+                ms=timer(lambda: multi_tensor_adam_([grads[0], p, m, v],
+                                                    **step_kw)),
+                plain=timer(lambda: multi_tensor_adam_reference(
+                    [grads[0], p, m, v], **step_kw)),
+                library=timer(lambda: torch._fused_adamw_(
+                    lib_p, grads[0], lib_m, lib_v, [], steps, lr=kw["lr"],
+                    beta1=0.9, beta2=0.999,
+                    weight_decay=kw["weight_decay"], eps=1e-8,
+                    amsgrad=False, maximize=False)))
+
+
+def phase_loss_optimizer_kernels(torch, model):
+    """Kernels 11, 12, 21 and 24 at the default-loss training path's
+    shapes: the xentropy pair on [8192, 50257] logits in fp32 and bf16,
+    smoothing 0 and 0.1; the scale over GPT-2's gradients in bf16 and
+    fp32; Adam over its fp32 masters."""
+    timer = Timer(torch)
+    results = {}
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    cases = [(dt, s) for dt in (torch.float32, torch.bfloat16)
+             for s in (0.0, 0.1)]
+    for i, (dtype, smoothing) in enumerate(cases):
+        r = _xent_case(torch, timer, dtype, smoothing, seed=20 + i)
+        for name, rr in r.items():
+            _log_times(f"{name} {dtype} smoothing={smoothing}", rr)
+            results[(name, str(dtype), smoothing)] = rr
+        torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        r = _mt_scale_case(torch, timer, shapes, dtype)
+        _log_times(f"multi_tensor_scale {dtype}", r)
+        results[("multi_tensor_scale", str(dtype))] = r
+        torch.cuda.empty_cache()
+    r = _mt_adam_case(torch, timer, shapes)
+    _log_times("multi_tensor_adam fp32", r)
+    results[("multi_tensor_adam", "torch.float32")] = r
+    torch.cuda.empty_cache()
+    return results
+
+
 def _serve_requests(rng, vocab, n, new_tokens, max_prompt,
                     temperature=0.0):
     from apex_tpu_torch.serving import Request
@@ -753,12 +1067,31 @@ def phase_parity(torch, model, engine_kw, prompt_len=300, new_tokens=16):
 
 
 # ---------------------------------------------------------------- train
-TRAIN_KERNELS = ("layer_norm", "layer_norm_bwd", "flash_fwd",
-                 "flash_bwd_dkdv", "flash_bwd_dq")
-PER_STEP = {"layer_norm": LN_PER_CALL, "layer_norm_bwd": LN_PER_CALL,
-            "flash_fwd": ATTN_PER_CALL, "flash_bwd_dkdv": ATTN_PER_CALL,
-            "flash_bwd_dq": ATTN_PER_CALL, "paged_decode_attention": 0,
-            "paged_prefill_attention": 0}
+_TRAIN_BASE = {"layer_norm": LN_PER_CALL, "layer_norm_bwd": LN_PER_CALL,
+               "flash_fwd": ATTN_PER_CALL, "flash_bwd_dkdv": ATTN_PER_CALL,
+               "flash_bwd_dq": ATTN_PER_CALL, "paged_decode_attention": 0,
+               "paged_prefill_attention": 0, "multi_tensor_adam": 1}
+#: the training paths chip_smoke drives, and each one's exact kernel
+#: launches per step. Under O2 the gradients come in two dtypes (bf16,
+#: and fp32 for the 50 LayerNorm tensors), so the unscale is two launches
+#: of kernel 21; under O1 every gradient is fp32. All 148 fp32 masters (or
+#: the flat layout's one superbuffer, ~1900 chunks of 65536) fit one launch
+#: table of kernel 24.
+TRAIN_PATHS = {
+    "train_fused_head": dict(opt_level="O2", loss="fused_head",
+                             layout="tree", steps=TRAIN["steps"],
+                             per_step=dict(_TRAIN_BASE, xent_fwd=0,
+                                           xent_bwd=0,
+                                           multi_tensor_scale=2)),
+    "train_xent": dict(opt_level="O2", loss="xent", layout="tree",
+                       steps=TRAIN["steps"],
+                       per_step=dict(_TRAIN_BASE, xent_fwd=1, xent_bwd=1,
+                                     multi_tensor_scale=2)),
+    "train_o1_flat": dict(opt_level="O1", loss="xent", layout="flat",
+                          steps=TRAIN["o1_steps"],
+                          per_step=dict(_TRAIN_BASE, xent_fwd=1,
+                                        xent_bwd=1, multi_tensor_scale=1)),
+}
 
 
 def _train_tokens(torch, vocab, batch, seq, seed):
@@ -770,21 +1103,28 @@ def _train_tokens(torch, vocab, batch, seq, seed):
                                        p=w / w.sum()).astype(np.int64))
 
 
-def _train_setup(torch, model, device, opt_level):
+def _train_setup(torch, model, device, opt_level, loss="xent",
+                 layout="tree"):
     """The recipe's training step (examples/lm/main_amp.py) for a copy of
-    ``model`` on ``device``: FusedAdam (AdamW) and the fused-head loss,
-    whose value a returned ``boost`` dict can multiply."""
+    ``model`` on ``device``: FusedAdam (AdamW) in ``layout`` and the
+    default loss (``xent``) or the fused head (``fused_head``), whose
+    value a returned ``boost`` dict can multiply."""
     import copy
 
     from apex_tpu_torch import amp
-    from apex_tpu_torch.examples.lm.main_amp import fused_head_loss_fn
+    from apex_tpu_torch.examples.lm.main_amp import (fused_head_loss_fn,
+                                                     xent_loss_fn)
     from apex_tpu_torch.optimizers import FusedAdam
 
     policy = amp.resolve_policy(opt_level, verbose=False)
     model = copy.deepcopy(model).to(device)
     opt = FusedAdam(model.parameters(), lr=TRAIN["lr"],
-                    weight_decay=TRAIN["weight_decay"], adam_w_mode=True)
-    head = fused_head_loss_fn(0.0, policy.compute_dtype)
+                    weight_decay=TRAIN["weight_decay"], adam_w_mode=True,
+                    layout=layout)
+    if loss == "fused_head":
+        head = fused_head_loss_fn(0.0, policy.model_dtype or torch.float32)
+    else:
+        head = xent_loss_fn(0.0)
     boost = {"factor": 1.0}
 
     def loss_fn(m, tokens):
@@ -794,13 +1134,18 @@ def _train_setup(torch, model, device, opt_level):
     return init_fn(model), step_fn, boost, head
 
 
-def phase_train(torch, model):
-    """GPT-2 width and depth at O2 through make_train_step: 12 steps on
-    one fixed batch. Returns (setup, metrics, launch counts)."""
+def phase_train(torch, model, path):
+    """One training path of TRAIN_PATHS at GPT-2 width and depth through
+    make_train_step, on one fixed batch: every loss finite, the last
+    ``min_drop`` nats below the first, the exact launches per step.
+    Returns (setup, metrics, launch counts)."""
     from apex_tpu_torch import kernels
 
-    state, step_fn, boost, _ = _train_setup(torch, model, "cuda", "O2")
-    B, S, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    cfg = TRAIN_PATHS[path]
+    per_step_want = cfg["per_step"]
+    state, step_fn, boost, _ = _train_setup(
+        torch, model, "cuda", cfg["opt_level"], cfg["loss"], cfg["layout"])
+    B, S, steps = TRAIN["batch"], TRAIN["seq"], cfg["steps"]
     tokens = _train_tokens(torch, model.vocab_size, B, S, 0).cuda()
     losses, times, found, per_step = [], [], [], []
     torch.cuda.synchronize()
@@ -815,35 +1160,67 @@ def phase_train(torch, model):
         losses.append(float(m["loss"]))
         found.append(bool(m["found_inf"]))
         per_step.append({k: kernels.launches[k] - before.get(k, 0)
-                         for k in PER_STEP})
-    counts = {k: int(kernels.launches[k]) for k in PER_STEP}
+                         for k in per_step_want})
+    counts = {k: int(kernels.launches[k]) for k in per_step_want}
     peak = torch.cuda.max_memory_allocated()
     step_s = statistics.median(times)
-    metrics = dict(steps=steps, tokens_per_step=B * S,
+    metrics = dict(path=path, opt_level=cfg["opt_level"], loss=cfg["loss"],
+                   layout=cfg["layout"], steps=steps, tokens_per_step=B * S,
                    step_ms_median=1e3 * step_s,
                    step_ms=[1e3 * t for t in times],
                    tokens_per_s=B * S / step_s,
                    max_memory_allocated_gib=peak / 2 ** 30,
                    losses=losses, overflow_steps=sum(found),
                    loss_scale=float(state.scaler.loss_scale))
-    log("train: " + json.dumps(metrics))
-    log("train launches: " + json.dumps(counts))
+    log(f"{path}: " + json.dumps(metrics))
+    log(f"{path} launches: " + json.dumps(counts))
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"train: non-finite loss in {losses}")
+        raise AssertionError(f"{path}: non-finite loss in {losses}")
     if not losses[-1] <= losses[0] - TRAIN["min_drop"]:
-        raise AssertionError(f"train: loss {losses[0]:.4f} -> "
+        raise AssertionError(f"{path}: loss {losses[0]:.4f} -> "
                              f"{losses[-1]:.4f}, less than "
                              f"{TRAIN['min_drop']} nats down")
     for i, c in enumerate(per_step):
-        if c != PER_STEP:
-            raise AssertionError(f"train step {i}: launches {c}, expected "
-                                 f"{PER_STEP}")
+        if c != per_step_want:
+            raise AssertionError(f"{path} step {i}: launches {c}, expected "
+                                 f"{per_step_want}")
     return (state, step_fn, boost, tokens), metrics, counts
+
+
+def phase_layout_check(torch, model, steps=3):
+    """FusedAdam's tree and flat layouts, each training a copy of the
+    same weights at O2 with the default loss for ``steps`` steps on the
+    same batch: losses, masters and model parameters bitwise equal."""
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    tokens = _train_tokens(torch, model.vocab_size, B, S, 0).cuda()
+    runs = {}
+    for layout in ("tree", "flat"):
+        state, step_fn, _, _ = _train_setup(torch, model, "cuda", "O2",
+                                            "xent", layout)
+        losses = []
+        for _ in range(steps):
+            state, m = step_fn(state, tokens)
+            losses.append(float(m["loss"]))
+        runs[layout] = (losses, state.master_params, state.params)
+        del state, step_fn
+    (lt, mt, pt), (lf, mf, pf) = runs["tree"], runs["flat"]
+    same = (lt == lf and all(torch.equal(a, b) for a, b in zip(mt, mf))
+            and all(torch.equal(a, b) for a, b in zip(pt, pf)))
+    log(f"layout check: O2 tree vs flat after {steps} steps: losses {lt} / "
+        f"{lf}; masters and parameters bitwise equal {same}")
+    if not same:
+        raise AssertionError("tree and flat FusedAdam layouts trained "
+                             "different weights")
+    return same
 
 
 def _kernel_group(name: str) -> str:
     """The part of a train step a device kernel belongs to, by name."""
     n = name.lower()
+    if "xent_" in n:
+        return "xentropy (ours)"
+    if "multi_tensor" in n:
+        return "multi-tensor (ours)"
     if "flash_" in n:
         return "flash attention (ours)"
     if n.startswith("void ln_") or "ln_fwd" in n or "ln_bwd" in n:
@@ -854,7 +1231,7 @@ def _kernel_group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def _profile_step(torch, setup):
+def _profile_step(torch, setup, path):
     """Device time of one more train step by kernel group, from a
     ``torch.profiler`` trace, beside the step's host wall time: where a
     step goes and the device's idle share. Reads nothing into any
@@ -895,7 +1272,7 @@ def _profile_step(torch, setup):
                idle_share=1.0 - busy / wall_ms if busy else None,
                by_group_ms=dict(sorted(groups.items(),
                                        key=lambda kv: -kv[1])))
-    log("train profile (one step): " + json.dumps(out))
+    log(f"{path} profile (one step): " + json.dumps(out))
     for ms, count, key in sorted(names, reverse=True)[:12]:
         log(f"  {ms:9.3f} ms  x{count:<5d} {key}")
     if not busy:
@@ -949,9 +1326,10 @@ def _grad_limit(g):
     return 1e-4 * g.abs().max()
 
 
-def phase_train_parity(torch, model):
+def phase_train_parity(torch, model, loss, layout):
     """The same weights at O0 fp32, card vs CPU (plain path), full width
-    and depth, B 2 x S 256, 3 steps; TF32 off only inside these calls."""
+    and depth, B 2 x S 256, 3 steps, with ``loss`` and FusedAdam's
+    ``layout``; TF32 off only inside these calls."""
     B, S, steps = (TRAIN_PARITY[k] for k in ("batch", "seq", "steps"))
     tokens = _train_tokens(torch, model.vocab_size, B, S, 1)
     old = (torch.backends.cuda.matmul.allow_tf32,
@@ -961,7 +1339,8 @@ def phase_train_parity(torch, model):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         for dev in ("cuda", "cpu"):
-            state, step_fn, _, head = _train_setup(torch, model, dev, "O0")
+            state, step_fn, _, head = _train_setup(torch, model, dev, "O0",
+                                                   loss, layout)
             batch = tokens.to(dev)
             head(state.model, batch).backward()
             names = [n for n, _ in state.model.named_parameters()]
@@ -986,7 +1365,8 @@ def phase_train_parity(torch, model):
     p_diff = max(float((p_dev[n] - p_cpu[n]).abs().max()) for n in p_cpu)
     near = sum(int(((p_dev[n] - p_cpu[n]).abs() <= 1e-6).sum())
                for n in p_cpu) / sum(t.numel() for t in p_cpu.values())
-    log(f"train parity: losses cuda {l_dev} cpu {l_cpu} (relative "
+    log(f"train parity ({loss}, {layout}): losses cuda {l_dev} cpu {l_cpu} "
+        f"(relative "
         f"{['%.2e' % x for x in rel]}); step-1 grads at {g_ratio:.3g} of "
         f"the limit; params max |d| {p_diff:.3g} (Adam bound {bound:g}), "
         f"{100 * near:.4f}% within 1e-6")
@@ -1003,50 +1383,61 @@ def phase_train_parity(torch, model):
                 param_max_diff=p_diff)
 
 
-def _kernel_line(results, train_results, counts, train_counts):
-    """The seven ported kernels, each at its main path's shape (bf16):
-    launches are the counts of the paths it ran on (serve, train)."""
-    main = {"layer_norm": (8, "torch.bfloat16"),
-            "paged_decode_attention": (8, "torch.bfloat16"),
-            "paged_prefill_attention": (256, "torch.bfloat16")}
+def _kernel_line(results, train_results, lo_results, counts_by_path):
+    """The eleven ported kernels, each at its main path's shape: bf16
+    for the serve and O2 train kernels, fp32 logits for the xentropy pair
+    (the tied head's output) and masters for Adam; launches are the
+    counts of the paths each ran on, read from each path's own run."""
     info = {
-        "layer_norm": ("apex_tpu_torch/csrc/layer_norm.cu",
-                       "apex_tpu/kernels/layer_norm.py:174",
+        "layer_norm": ("layer_norm.cu", "layer_norm.py:174",
                        "rows=8 (decode) H=768 bf16"),
         "paged_decode_attention": (
-            "apex_tpu_torch/csrc/paged_attention.cu",
-            "apex_tpu/kernels/decode_attention.py:423",
+            "paged_attention.cu", "decode_attention.py:423",
             "B=8 h=12 d=64 page_len=128 lengths 1..1024 bf16"),
         "paged_prefill_attention": (
-            "apex_tpu_torch/csrc/paged_attention.cu",
-            "apex_tpu/kernels/prefill_attention.py:413",
+            "paged_attention.cu", "prefill_attention.py:413",
             "B=1 C=256 offset=256 h=12 d=64 page_len=128 bf16"),
-        "layer_norm_bwd": ("apex_tpu_torch/csrc/layer_norm.cu",
-                           "apex_tpu/kernels/layer_norm.py:221",
+        "layer_norm_bwd": ("layer_norm.cu", "layer_norm.py:221",
                            "rows=8192 H=768 bf16 x, fp32 gamma"),
-        "flash_fwd": ("apex_tpu_torch/csrc/flash_attention.cu",
-                      "apex_tpu/kernels/flash_attention.py:548",
+        "flash_fwd": ("flash_attention.cu", "flash_attention.py:548",
                       "bh=96 S=1024 d=64 causal bf16"),
-        "flash_bwd_dkdv": ("apex_tpu_torch/csrc/flash_attention.cu",
-                           "apex_tpu/kernels/flash_attention.py:615",
+        "flash_bwd_dkdv": ("flash_attention.cu", "flash_attention.py:615",
                            "bh=96 S=1024 d=64 causal bf16"),
-        "flash_bwd_dq": ("apex_tpu_torch/csrc/flash_attention.cu",
-                         "apex_tpu/kernels/flash_attention.py:653",
+        "flash_bwd_dq": ("flash_attention.cu", "flash_attention.py:653",
                          "bh=96 S=1024 d=64 causal bf16"),
+        "xent_fwd": ("xentropy.cu", "xentropy.py:132",
+                     "N=8192 V=50257 fp32 logits, smoothing 0"),
+        "xent_bwd": ("xentropy.cu", "xentropy.py:161",
+                     "N=8192 V=50257 fp32 logits, smoothing 0"),
+        "multi_tensor_scale": (
+            "multi_tensor.cu", "multi_tensor.py:95",
+            "GPT-2's 148 gradients, 124.44M, bf16 -> fp32"),
+        "multi_tensor_adam": (
+            "multi_tensor.cu", "multi_tensor.py:265",
+            "GPT-2's 148 fp32 masters, 124.44M, fp32 grads"),
     }
     o2 = "torch.bfloat16 x, torch.float32 gamma"
-    rows = {name: results[(name,) + key] for name, key in main.items()}
-    rows["layer_norm_bwd"] = train_results[("layer_norm_bwd", o2)]
+    bf16, f32 = "torch.bfloat16", "torch.float32"
+    rows = {"layer_norm": results[("layer_norm", 8, bf16)],
+            "paged_decode_attention": results[("paged_decode_attention", 8,
+                                               bf16)],
+            "paged_prefill_attention": results[("paged_prefill_attention",
+                                                256, bf16)],
+            "layer_norm_bwd": train_results[("layer_norm_bwd", o2)]}
     for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
-        rows[name] = train_results[(name.replace("_bwd", ""),
-                                    "torch.bfloat16")]
+        rows[name] = train_results[(name.replace("_bwd", ""), bf16)]
+    for name in ("xent_fwd", "xent_bwd"):
+        rows[name] = lo_results[(name, f32, 0.0)]
+    rows["multi_tensor_scale"] = lo_results[("multi_tensor_scale", bf16)]
+    rows["multi_tensor_adam"] = lo_results[("multi_tensor_adam", f32)]
     out = []
     for name, r in rows.items():
         src, replaces, shape = info[name]
-        by_path = {"serve": counts.get(name, 0),
-                   "train": train_counts.get(name, 0)}
-        entry = {"name": name, "route": "cuda", "source": src,
-                 "replaces": replaces, "launches": sum(by_path.values()),
+        by_path = {path: c.get(name, 0) for path, c in counts_by_path.items()}
+        entry = {"name": name, "route": "cuda",
+                 "source": f"apex_tpu_torch/csrc/{src}",
+                 "replaces": f"apex_tpu/kernels/{replaces}",
+                 "launches": sum(by_path.values()),
                  "launches_by_path": by_path, "max_abs_err": r["err"],
                  "ms": r["ms"], "plain_ms": r["plain"],
                  "bound_ms": r["bound"], "bound_by": r["by"],
@@ -1064,6 +1455,19 @@ def _kernel_line(results, train_results, counts, train_counts):
             ]["library"]
         if name.startswith("flash_bwd"):
             entry["library_computes"] = "dq, dk and dv together"
+        if name.startswith("xent_"):
+            entry["other_cases"] = {
+                f"{dt} smoothing={sm}": {
+                    k: lo_results[(name, dt, sm)][k]
+                    for k in ("err", "ms", "plain", "bound", "library")}
+                for dt in (f32, bf16) for sm in (0.0, 0.1)
+                if (dt, sm) != (f32, 0.0)}
+        if name == "multi_tensor_scale":
+            fp = lo_results[("multi_tensor_scale", f32)]
+            entry["fp32_in"] = {k: fp[k] for k in ("ms", "plain", "bound",
+                                                   "library")}
+        if name.startswith("multi_tensor"):
+            entry["launches_per_call"] = r["launches_per_call"]
         out.append(entry)
     return {"kernels": out}
 
@@ -1088,20 +1492,29 @@ def main() -> int:
     phase_build()
     results = phase_kernels(torch)
     train_results = phase_train_kernels(torch)
-    log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
     model = create_lm(**GPT2)
-    _, counts = phase_serve(torch, model, SERVE)
+    lo_results = phase_loss_optimizer_kernels(torch, model)
+    log(f"kernels done at {time.perf_counter() - t_start:.1f} s")
+    _, serve_counts = phase_serve(torch, model, SERVE)
     phase_parity(torch, model, dict(max_len=1024, prefill_len=512,
                                     chunk_len=256))
     log(f"serve done at {time.perf_counter() - t_start:.1f} s")
-    setup, _, train_counts = phase_train(torch, model)
-    _profile_step(torch, setup)
-    phase_overflow(torch, setup)
-    del setup
-    phase_train_parity(torch, model)
+    counts_by_path = {"serve": serve_counts}
+    for path in TRAIN_PATHS:
+        setup, _, counts_by_path[path] = phase_train(torch, model, path)
+        if path != "train_o1_flat":
+            _profile_step(torch, setup, path)
+        if path == "train_fused_head":
+            phase_overflow(torch, setup)
+        del setup
+        torch.cuda.empty_cache()
+    phase_layout_check(torch, model)
+    log(f"train done at {time.perf_counter() - t_start:.1f} s")
+    phase_train_parity(torch, model, "fused_head", "tree")
+    phase_train_parity(torch, model, "xent", "flat")
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps(_kernel_line(results, train_results, counts,
-                                  train_counts)))
+    print(json.dumps(_kernel_line(results, train_results, lo_results,
+                                  counts_by_path)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

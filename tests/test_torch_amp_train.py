@@ -128,8 +128,13 @@ def test_fused_adam_refuses_what_is_not_ported():
     p = [torch.nn.Parameter(torch.zeros(2))]
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedAdam(p, amsgrad=True)
-    with pytest.raises(NotImplementedError, match="#24"):
-        FusedAdam(p, layout="flat")
+    with pytest.raises(ValueError, match="layout"):
+        FusedAdam(p, layout="superbuffer")
+    # the flat layout (kernel #24 over one fp32 superbuffer) is ported
+    opt = FusedAdam(p, layout="flat")
+    p[0].grad = torch.ones(2)
+    opt.step()
+    assert opt.layout == "flat" and opt.flat_state[0]["exp_avg"].shape == (2,)
 
 
 # ------------------------------------------------------- the whole slice
@@ -304,5 +309,8 @@ def test_o2_casts_norms_fp32_and_points_the_optimizer_at_masters(
     assert all(p.dtype == torch.float32 for p in opt_params)
     assert {id(p) for p in opt_params} == {id(p)
                                           for p in state.master_params}
-    with pytest.raises(NotImplementedError, match="autocast"):
-        amp.resolve_policy("O1", verbose=False)
+    # O1 (the autocast engine) is ported: it keeps the model fp32 and
+    # steps its own parameters, with no masters
+    state, _ = _port(jax_weights, "O1")
+    assert state.master_params is None
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())

@@ -5,9 +5,10 @@
   ``jaxlib``, ``flax``, ``optax`` or ``apex_tpu`` (``apex_tpu_torch``
   itself is fine).
 - Importing the port in a fresh interpreter loads no JAX module.
-- ``Engine(device=None)`` means the GPU, and so does the training
-  recipe's default ``--device``: without one both raise instead of
-  running on the CPU; and ``chip_smoke.py`` exits non-zero with no
+- ``Engine(device=None)`` means the GPU, and so do the training
+  recipe's default ``--device`` and ``PagedKVCache.create``'s default
+  device: without one they raise instead of running on the CPU; and
+  ``chip_smoke.py`` exits non-zero with no
   result line, in the checkout without a GPU and alone in an empty
   directory (run in this process).
 """
@@ -21,6 +22,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -71,6 +73,7 @@ def test_port_import_loads_no_jax():
     code = ("import sys, apex_tpu_torch.serving, apex_tpu_torch.models, "
             "apex_tpu_torch.kernels, apex_tpu_torch.amp, "
             "apex_tpu_torch.optimizers, apex_tpu_torch.normalization, "
+            "apex_tpu_torch.multi_tensor_apply, apex_tpu_torch.utils, "
             "apex_tpu_torch.examples.lm.main_amp; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
@@ -91,6 +94,27 @@ def test_engine_default_device_is_the_gpu():
         Engine(model, slots=1, max_len=32, prefill_len=16)
 
 
+def test_paged_kv_cache_default_device_is_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None would use it")
+    from apex_tpu_torch.serving import PagedKVCache
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedKVCache.create(layers=1, num_pages=3, heads=2, page_len=4,
+                            head_dim=8)
+
+
+def test_paged_kv_cache_on_the_cpu_when_named():
+    from apex_tpu_torch.serving import PagedKVCache
+
+    cache = PagedKVCache.create(layers=2, num_pages=3, heads=2, page_len=4,
+                                head_dim=8, dtype=torch.float32,
+                                device="cpu")
+    assert cache.k.device.type == cache.v.device.type == "cpu"
+    assert cache.k.shape == (2, 3, 2, 4, 8) and not cache.k.any()
+    assert cache.nbytes() == 2 * 2 * 3 * 2 * 4 * 8 * 4
+
+
 def test_trainer_default_device_is_the_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: --device cuda would use it")
@@ -101,11 +125,14 @@ def test_trainer_default_device_is_the_gpu():
     assert main_amp.parse_args(argv).device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):
         main_amp.main(argv)
-    # the unported default loss names its kernels
-    with pytest.raises(NotImplementedError, match="#11 and #12"):
-        main_amp.main(argv[:-1] + ["--device", "cpu"])
+    # on the CPU: the fused head, and the default loss (xentropy
+    # kernels #11-#12' plain versions) in both FusedAdam layouts and at O1
     out = main_amp.main(argv + ["--device", "cpu"])
     assert len(out["loss_history"]) == 1
+    for extra in ([], ["--opt-layout", "flat"], ["--opt-level", "O1"]):
+        out = main_amp.main(argv[:-1] + ["--device", "cpu"] + extra)
+        assert len(out["loss_history"]) == 1
+        assert all(np.isfinite(out["loss_history"]))
 
 
 @pytest.mark.parametrize("alone", [False, True])
